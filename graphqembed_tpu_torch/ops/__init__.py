@@ -1,0 +1,1 @@
+"""Custom gradients and the hand-written CUDA kernels with their plain versions."""
