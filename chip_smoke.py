@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (graphqembed_tpu_torch) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain PyTorch
 version on the card, trains the bench workload through the port's entry
-points, and checks what comes out.
+points, evaluates what it trained, and checks what comes out.
 
     python3 chip_smoke.py             # the phases below; needs one card
     python3 chip_smoke.py --profile   # adds a torch.profiler breakdown of
@@ -10,8 +10,16 @@ points, and checks what comes out.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   build      compile csrc/*.cu with nvcc (one process per source, together)
-  kernels    each kernel against its plain version at the main path's
-             shapes, with its time, bytes, bound and the library yardstick
+  kernels    each fused-Adam kernel against its plain version at the main
+             path's shapes, with its time, bytes, bound and the library
+             yardstick
+  kernel_bench
+             fused_intersection against its plain version at [3,4096,128]
+             and [2,1024,128], min and mean; then the port's kernel bench
+             (graphqembed_tpu_torch/experiments/kernel_bench.py), the only
+             caller of gather_normalize and sddmm_scores: each of the three
+             ops/kernels.py kernels against its plain version and timed at
+             the JAX bench's shapes
   reference  a few float32 train steps on the card against the same steps
              on the CPU (plain versions), same batches
   train      the bench workload: bio-synth graph (scale 40, 35,200 nodes),
@@ -19,6 +27,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              bfloat16 storage and compute, FusedAdamOpt; 2 warm-up chunks and
              20 timed chunks of 100 steps alternating 2p/3i; then one
              float32-storage chunk
+  eval       AUC (one negative), hard AUC and APR of the trained parameters
+             on held-out queries of the bench graph (500 2p, 500 3i, 200
+             each of 2i, ip, pi; fresh seed, training queries dropped;
+             exhaustive negatives, APR over the first 512), at float32
+             compute, on the fast rows route and on the per-formula route
+             with use_pallas (fused_intersection once per intersection
+             formula batch); the same eval with the parameters on the CPU;
+             training-set AUC against untrained parameters; held-out AUC
+             against untrained parameters (reported)
 Then the card's name and power limit, the {"kernels": [...]} line, and the
 last line {"ok": true, "device": {...}}.
 """
@@ -28,13 +45,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
-FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 CHUNK = 100
 
 
@@ -47,53 +61,28 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+# Timing and bounds come from the port's kernel bench
+# (graphqembed_tpu_torch/experiments/kernel_bench.py), in microseconds there
+# and in milliseconds here.
+
 def time_ms(fn, reps=25, inner=4):
     """Median time of one call between CUDA events around `inner` calls:
     device time, or the host's launch time where the host is slower."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(inner):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / inner)
-    return statistics.median(times)
-
-
-def _kernel_events(prof):
-    """(device µs, name, calls) of the GPU kernels a profile saw."""
-    from torch.autograd import DeviceType
-    return [(e.self_device_time_total, e.key, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    from graphqembed_tpu_torch.experiments.kernel_bench import event_us
+    return event_us(lambda i: fn(), reps, inner) / 1e3
 
 
 def device_ms(fn, reps=20):
     """Device time of one call: the summed duration of the GPU kernels it
     launches (torch.profiler), whatever the host's launch overhead."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(us for us, _, _ in _kernel_events(prof))
-    check(total_us > 0, "the profiler saw no device time")
-    return total_us / 1e3 / reps
+    from graphqembed_tpu_torch.experiments.kernel_bench import device_us
+    return device_us(lambda i: fn(), reps) / 1e3
 
 
 def bound(n_bytes, n_ops):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    from graphqembed_tpu_torch.experiments.kernel_bench import bound_us
+    t_us, by = bound_us(n_bytes, n_ops)
+    return t_us / 1e3, by
 
 
 def ulp_diff(a, b):
@@ -247,6 +236,45 @@ def phase_kernels(dev):
     return out
 
 
+def phase_kernel_bench(dev):
+    """fused_intersection against its plain version at the eval path's
+    widths; then the kernel bench, whose launches are the main path of
+    gather_normalize and sddmm_scores. Tolerances: kernel_bench.TOLERANCE."""
+    import torch
+
+    from graphqembed_tpu_torch.experiments import kernel_bench as kb
+    from graphqembed_tpu_torch.ops import kernels as K
+
+    gen = torch.Generator().manual_seed(1)
+    checks = []
+    for k, b in ((3, 4096), (2, 1024)):
+        zs = torch.randn(k, b, 128, generator=gen).to(dev)
+        pre, post = ((torch.randn(128, 128, generator=gen) / 128 ** 0.5).to(dev)
+                     for _ in range(2))
+        for kind in ("min", "mean"):
+            err = kb.errors(K.fused_intersection(zs, pre, post, kind),
+                            K.fused_intersection_plain(zs, pre, post, kind))
+            torch.cuda.synchronize()
+            checks.append({"shape": [k, b, 128], "kind": kind, **err})
+            check(err["max_abs_err"] <= kb.TOLERANCE["fused_intersection"],
+                  f"fused_intersection differs from plain at {[k, b, 128]} {kind}")
+
+    K.reset_launch_counts()
+    benches = {}
+    for fn in (kb.bench_gather, kb.bench_sddmm, kb.bench_intersection):
+        r = fn()
+        torch.cuda.synchronize()
+        check(r["ok"], f"{r['kernel']} differs from plain: {r}")
+        benches[r["kernel"]] = r
+    launches = dict(K.LAUNCHES)
+    for name in ("gather_normalize", "sddmm_scores"):
+        check(launches[name] > 0, f"the bench launched no {name}: {launches}")
+    emit({"phase": "kernel_bench", "fused_intersection_checks": checks,
+          "benches": list(benches.values()), "launches": launches})
+    return {"benches": benches, "launches": launches,
+            "intersection_err": max(c["max_abs_err"] for c in checks)}
+
+
 def phase_reference(dev):
     """Four float32 steps on the card (kernels) against the same steps on
     the CPU (plain versions) from the same parameters and batches. Mean
@@ -397,6 +425,130 @@ def phase_train(dev, profile: bool, card: str):
           "loss_last": {s: v[-1] for s, v in per.items()},
           "launches": launches, "fp32_chunk": {"loss": l32, "launches": launches32},
           "profile": prof})
+    return launches, {"graph": graph, "cfg": cfg, "params": params,
+                      "queries": queries}
+
+
+def _batch_count(queries, structures, batch_size):
+    """Per-formula batches of `structures` that eval's per-formula route
+    makes for `queries`: ceil(n / batch_size) per formula."""
+    from graphqembed_tpu_torch.data.queries import group_by_formula
+    return sum(-(-len(qs) // batch_size)
+               for f, qs in group_by_formula(queries).items()
+               if f.structure in structures)
+
+
+def phase_eval(trained, card: str):
+    """The trained bf16 parameters on held-out queries, both eval routes,
+    at float32 compute: fused_intersection computes in float32, so the two
+    routes are compared on equal terms (the table stays bfloat16 storage)."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.config import INTERSECT_STRUCTURES
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.models.params import init_params, tree_map
+    from graphqembed_tpu_torch.ops import kernels as K
+    from graphqembed_tpu_torch.training import eval_apr, eval_auc
+
+    graph, params, train_q = trained["graph"], trained["params"], trained["queries"]
+    schema = graph.schema
+    cfg = dataclasses.replace(trained["cfg"], compute_dtype="float32")
+    t0 = time.perf_counter()
+    seen = {q.dedup_key() for q in train_q}
+    sampler = QuerySampler(graph, np.random.default_rng(2024), max_negs=30)
+    val = []
+    for s, n in (("2p", 500), ("3i", 500), ("2i", 200), ("ip", 200), ("pi", 200)):
+        val += [q for q in sampler.sample_many(s, n, exhaustive_negs=True)
+                if q.dedup_key() not in seen]
+    sample_s = time.perf_counter() - t0
+    n_val = {s: sum(q.formula.structure == s for q in val)
+             for s in ("2p", "3i", "2i", "ip", "pi")}
+    n_formulas = {s: len({q.formula for q in val if q.formula.structure == s})
+                  for s in n_val}
+
+    def run_all(c, p, queries, **kw):
+        return {"auc": eval_auc(c, p, schema, queries, seed=0, **kw),
+                "hard_auc": eval_auc(c, p, schema, queries, seed=0, hard=True, **kw),
+                "apr": eval_apr(c, p, schema, queries, max_negs=c.max_eval_negs,
+                                **kw)}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    fast, fast_s = timed(lambda: run_all(cfg, params, val))
+    pcfg = dataclasses.replace(cfg, use_pallas=True)
+    # the main path of fused_intersection: counts from 0 around the three
+    # per-formula evals, one launch per intersection-formula batch
+    K.reset_launch_counts()
+    formula, formula_s = timed(lambda: run_all(pcfg, params, val,
+                                               neighbor_tables=object()))
+    launches = dict(K.LAUNCHES)
+    want = 3 * _batch_count(val, INTERSECT_STRUCTURES, cfg.eval_batch_size)
+    check(launches == {"gather_normalize": 0, "sddmm_scores": 0,
+                       "fused_intersection": want},
+          f"per-formula eval launches {launches}, want {want} intersections")
+    # hard AUC is left out, as in the JAX package's own check: the fast
+    # route skips a query with no hard negative, the per-formula route
+    # scores it against a plain negative
+    route_diff = max(abs(fast[m][s] - formula[m][s])
+                     for m in ("auc", "apr") for s in fast[m])
+    check(set(fast["auc"]) == set(formula["auc"]) and route_diff <= 5e-4,
+          f"fast and per-formula routes differ by {route_diff}")
+
+    # the same evals on the CPU: plain versions instead of the kernels. The
+    # per-formula APR is not repeated there (hundreds of [1024, 512, 128]
+    # gathers are minutes of CPU).
+    cpu = tree_map(lambda x: x.detach().cpu(), params)
+    cpu_fast = run_all(cfg, cpu, val)
+    cpu_formula = {m: eval_auc(pcfg, cpu, schema, val, seed=0, hard=m == "hard_auc",
+                               neighbor_tables=object())
+                   for m in ("auc", "hard_auc")}
+    cpu_diff = max([abs(fast[m][s] - cpu_fast[m][s]) for m in fast for s in fast[m]]
+                   + [abs(formula[m][s] - cpu_formula[m][s])
+                      for m in cpu_formula for s in formula[m]])
+    check(cpu_diff <= 1e-3, f"card and CPU evals differ by {cpu_diff}")
+
+    train_eval = [q for q in train_q if q.formula.structure == "2p"][:500] + \
+        [q for q in train_q if q.formula.structure == "3i"][:500]
+    train_auc = eval_auc(cfg, params, schema, train_eval, seed=0)
+    check(min(train_auc["2p"], train_auc["3i"]) >= 0.95,
+          f"training-set AUC below 0.95: {train_auc}")
+    # untrained parameters (the train phase's starting point) as the floor.
+    # Training must lift the training set's AUC far above it. Held-out
+    # queries are reported, not gated: the 3,000 training queries name 17%
+    # of the 35,200 nodes as anchor or target, the model memorizes them, and
+    # held-out AUC stays within a few hundredths of the floor, moving that
+    # much between runs (PERF.md §6).
+    untrained = init_params(trained["cfg"], schema, torch.Generator().manual_seed(0),
+                            device=params["table"].device)
+    floor = eval_auc(cfg, untrained, schema, val, seed=0)
+    train_floor = eval_auc(cfg, untrained, schema, train_eval, seed=0)
+    lift = train_auc["macro"] - train_floor["macro"]
+    check(lift >= 0.4, f"training lifts training-set AUC by only {lift}")
+    named = {n for q in train_q for n in (*q.anchors, q.target)}
+    val_target_named = sum(q.target in named for q in val) / len(val)
+    held = (fast["auc"]["2p"] + fast["auc"]["3i"]) / 2
+    held_floor = (floor["2p"] + floor["3i"]) / 2
+    metrics = [v for r in (fast, formula) for m in r.values() for v in m.values()]
+    metrics += [*train_auc.values(), *floor.values(), *train_floor.values()]
+    check(all(np.isfinite(v) for v in metrics), "a metric is not finite")
+
+    emit({"phase": "eval", "card": card, "n_val": n_val,
+          "n_formulas": n_formulas, "sample_s": sample_s,
+          "fast": fast, "fast_s": fast_s, "per_formula": formula,
+          "per_formula_s": formula_s, "fused_intersection_launches":
+              launches["fused_intersection"], "route_max_diff": route_diff,
+          "cpu_max_diff": cpu_diff, "train_auc": train_auc,
+          "untrained_train_auc": train_floor,
+          "untrained_auc": floor, "heldout_2p3i_auc": held,
+          "untrained_2p3i_auc": held_floor,
+          "train_named_node_frac": len(named) / schema.n_nodes,
+          "val_target_named_frac": val_target_named})
     return launches
 
 
@@ -411,7 +563,8 @@ def profile_chunk(chunk, i0, ms_per_step):
         chunk(i0)
         chunk(i0 + 1)
         torch.cuda.synchronize()
-    rows = sorted(_kernel_events(prof), reverse=True)
+    from graphqembed_tpu_torch.experiments.kernel_bench import kernel_events
+    rows = sorted(kernel_events(prof), reverse=True)
     busy_ms = sum(us for us, _, _ in rows) / 1e3
     steps = 2 * CHUNK
     return {"steps": steps, "device_busy_ms_per_step": busy_ms / steps,
@@ -437,8 +590,10 @@ def main(argv):
     card = card_name_and_power()
     phase_build()
     kern = phase_kernels(dev)
+    kb = phase_kernel_bench(dev)
     phase_reference(dev)
-    launches = phase_train(dev, "--profile" in argv, card)
+    launches, trained = phase_train(dev, "--profile" in argv, card)
+    eval_launches = phase_eval(trained, card)
 
     print(card, flush=True)
 
@@ -447,7 +602,7 @@ def main(argv):
     kernels = [
         {"name": "fused_adam_leaf", "route": "cuda",
          "source": "graphqembed_tpu_torch/csrc/fused_adam.cu",
-         "replaces": "graphqembed_tpu/ops/fused_adam.py:395",
+         "replaces": "graphqembed_tpu/ops/fused_adam.py:415",
          "launches": launches["fused_adam_leaf"],
          "max_abs_err": kern["fused_adam_leaf"]["max_abs_err"],
          "ms": leaf_t["ms"], "plain_ms": leaf_t["plain_ms"],
@@ -455,13 +610,30 @@ def main(argv):
          "library_ms": leaf_t["library_ms"]},
         {"name": "fused_adam_leaf_sr", "route": "cuda",
          "source": "graphqembed_tpu_torch/csrc/fused_adam.cu",
-         "replaces": "graphqembed_tpu/ops/fused_adam.py:138",
+         "replaces": "graphqembed_tpu/ops/fused_adam.py:161",
          "launches": launches["fused_adam_leaf_sr"],
          "max_abs_err": kern["fused_adam_leaf_sr"]["max_abs_err"],
          "ms": sr_t["ms"], "plain_ms": sr_t["plain_ms"],
          "bound_ms": sr_t["bound_ms"], "bound_by": sr_t["bound_by"],
          "library_ms": sr_t["library_ms"]},
     ]
+    main_path = {"fused_intersection": eval_launches["fused_intersection"],
+                 "gather_normalize": kb["launches"]["gather_normalize"],
+                 "sddmm_scores": kb["launches"]["sddmm_scores"]}
+    for name, line in (("fused_intersection", 217), ("gather_normalize", 69),
+                       ("sddmm_scores", 163)):
+        r = kb["benches"][name]
+        err = r["max_abs_err"]
+        if name == "fused_intersection":
+            err = max(err, kb["intersection_err"])
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "graphqembed_tpu_torch/csrc/kernels.cu",
+            "replaces": f"graphqembed_tpu/ops/kernels.py:{line}",
+            "launches": main_path[name], "max_abs_err": err,
+            "ms": r["us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
+            "bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
+            "library_ms": None if r["library_us"] is None else r["library_us"] / 1e3})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Query formalism: 7 conjunctive structures, Formula/Query.
+"""Query formalism: 7 conjunctive structures, Formula/Query, SoA batches.
 
 A Formula is the abstract structure (query type + typed relations); a Query
 is an instance (anchor node ids, target id, negative samples, and hard
@@ -105,6 +105,9 @@ class Formula:
     def rel_ids(self, schema: Schema) -> np.ndarray:
         return np.array([schema.rel_id(r) for r in self.rels], dtype=np.int32)
 
+    def serialize(self) -> tuple:
+        return (self.structure, self.rels)
+
 
 @dataclasses.dataclass
 class Query:
@@ -119,5 +122,125 @@ class Query:
     hard_neg_samples: np.ndarray | None = None
 
     def dedup_key(self) -> tuple:
-        return ((self.formula.structure, self.formula.rels), self.anchors,
-                self.target)
+        return (self.formula.serialize(), self.anchors, self.target)
+
+
+@dataclasses.dataclass
+class QueryBatch:
+    """Static-shape SoA batch for ONE formula (numpy arrays on the host).
+
+    negs is padded to width K with mask; rows beyond n_valid are padding
+    (anchors/targets repeat row 0) and masked out of loss/metrics by `row_mask`.
+    """
+
+    structure: str
+    rels: np.ndarray            # int32 [R] relation ids (application order)
+    anchors: np.ndarray         # int32 [B, A]
+    targets: np.ndarray         # int32 [B]
+    negs: np.ndarray            # int32 [B, K]
+    neg_mask: np.ndarray        # bool  [B, K]
+    row_mask: np.ndarray        # bool  [B]
+    target_mode_id: int
+    inter_mode_id: int          # -1 for pure chains
+    hard_negs: np.ndarray | None = None   # int32 [B, K2]
+    hard_neg_mask: np.ndarray | None = None
+
+    @property
+    def batch_size(self) -> int:
+        return int(self.anchors.shape[0])
+
+    @property
+    def n_valid(self) -> int:
+        return int(self.row_mask.sum())
+
+
+def group_by_formula(queries: list[Query]) -> dict[Formula, list[Query]]:
+    """Organize a query list by formula; batches are drawn within one
+    formula so relation ids are batch constants."""
+    out: dict[Formula, list[Query]] = {}
+    for q in queries:
+        out.setdefault(q.formula, []).append(q)
+    return out
+
+
+def make_batch(
+    schema: Schema,
+    queries: list[Query],
+    batch_size: int | None = None,
+    neg_width: int = 1,
+    hard_neg_width: int = 0,
+    rng: np.random.Generator | None = None,
+) -> QueryBatch:
+    """Pack queries (all sharing one formula) into a padded SoA batch.
+
+    neg_width=1 with an rng draws one random negative per query (training's
+    1-sampled-negative margin loss); neg_width=K truncates/pads the stored
+    negative list (evaluation). The draws from `rng` come in the JAX
+    package's order, so the same seed gives the same arrays.
+    """
+    assert queries, "empty batch"
+    f = queries[0].formula
+    assert all(q.formula == f for q in queries)
+    n = len(queries)
+    b = batch_size or n
+    assert n <= b
+    a = f.n_anchors
+
+    anchors = np.zeros((b, a), dtype=np.int32)
+    targets = np.zeros(b, dtype=np.int32)
+    negs = np.zeros((b, neg_width), dtype=np.int32)
+    neg_mask = np.zeros((b, neg_width), dtype=bool)
+    row_mask = np.zeros(b, dtype=bool)
+    hard_negs = hard_mask = None
+    if hard_neg_width:
+        hard_negs = np.zeros((b, hard_neg_width), dtype=np.int32)
+        hard_mask = np.zeros((b, hard_neg_width), dtype=bool)
+
+    def fill_negs(row: int, pool: np.ndarray, out: np.ndarray, mask: np.ndarray):
+        if len(pool) == 0:
+            return
+        if rng is not None and neg_width == 1 and out is negs:
+            pick = pool[rng.integers(0, len(pool))]
+            out[row, 0] = pick
+            mask[row, 0] = True
+            return
+        k = min(out.shape[1], len(pool))
+        if rng is not None and len(pool) > out.shape[1]:
+            sel = rng.choice(len(pool), size=k, replace=False)
+            out[row, :k] = pool[sel]
+        else:
+            out[row, :k] = pool[:k]
+        mask[row, :k] = True
+
+    for i, q in enumerate(queries):
+        anchors[i] = q.anchors
+        targets[i] = q.target
+        row_mask[i] = True
+        fill_negs(i, np.asarray(q.neg_samples), negs, neg_mask)
+        if hard_neg_width:
+            pool = q.hard_neg_samples
+            if pool is None or len(pool) == 0:
+                pool = np.asarray(q.neg_samples)  # fall back to plain negatives
+            fill_negs(i, np.asarray(pool), hard_negs, hard_mask)
+    # pad rows: repeat row 0 so gathers stay in-range
+    if n < b:
+        anchors[n:] = anchors[0]
+        targets[n:] = targets[0]
+        negs[n:] = negs[0]
+        if hard_neg_width:
+            hard_negs[n:] = hard_negs[0]
+
+    im = f.intersection_mode
+    return QueryBatch(
+        structure=f.structure,
+        rels=f.rel_ids(schema),
+        anchors=anchors,
+        targets=targets,
+        negs=negs,
+        neg_mask=neg_mask,
+        row_mask=row_mask,
+        target_mode_id=schema.mode_id(f.target_mode),
+        inter_mode_id=-1 if im is None else schema.mode_id(im),
+        hard_negs=hard_negs,
+        hard_neg_mask=hard_mask,
+    )

@@ -3,8 +3,8 @@ interface, at first use, and load them with ctypes.
 
 Each source under `graphqembed_tpu_torch/csrc/` becomes
 `build/lib<name>-<hash>.so` at the repository root (the hash covers the
-source and the flags, so an edit rebuilds). `build_kernels()` starts one
-`nvcc` per source, all at once, and waits for them.
+source and its flags, so an edit of either rebuilds). `build_kernels()`
+starts one `nvcc` per source, all at once, and waits for them.
 """
 
 from __future__ import annotations
@@ -20,13 +20,19 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build"
-SOURCES = {"gqe_fused_adam": CSRC / "fused_adam.cu"}
+# name -> (source, nvcc flags of its own). fused_adam.cu takes -fmad=false:
+# no fused multiply-adds, so its kernels round each operation as the plain
+# PyTorch versions do and agree with them bit for bit. kernels.cu is held to
+# its plain versions with tolerances (its sums run in another order anyway),
+# so it keeps nvcc's contractions.
+SOURCES = {
+    "gqe_fused_adam": (CSRC / "fused_adam.cu", ("-fmad=false",)),
+    "gqe_kernels": (CSRC / "kernels.cu", ()),
+}
 
-# -fmad=false: no fused multiply-adds, so the kernels round each operation
-# as the plain PyTorch versions do. No fast math: IEEE sqrtf and division.
+# No fast math for any source: IEEE sqrtf and division.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -38,9 +44,13 @@ def _nvcc() -> str:
     return path
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + SOURCES[name][1]
+
+
 def lib_path(name: str) -> Path:
-    h = hashlib.sha256(SOURCES[name].read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(SOURCES[name][0].read_bytes())
+    h.update(" ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -58,7 +68,7 @@ def build_kernels(names=None) -> dict:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        cmd = [_nvcc(), *nvcc_flags(name), "-o", str(tmp), str(SOURCES[name][0])]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -84,3 +94,16 @@ def load(name: str) -> ctypes.CDLL:
             build_kernels([name])
         lib = _LOADED[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def launch(counts: dict, name: str, fn, *args, device) -> None:
+    """Call the C entry point `fn(*args, stream)` on `device`'s current
+    stream; raise if it returns a CUDA error, else add one to counts[name]."""
+    import torch
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+    counts[name] += 1

@@ -117,15 +117,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _launch(name, fn, *args, device):
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = fn(*args, ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES[name] += 1
-
-
 def fused_adam_leaf(p, g, mu, nu, count: int, lr: float, b1: float = 0.9,
                     b2: float = 0.999, eps: float = 1e-8) -> None:
     """One Adam step for one float32 leaf of any shape, in place. count is
@@ -137,9 +128,9 @@ def fused_adam_leaf(p, g, mu, nu, count: int, lr: float, b1: float = 0.9,
     if p.device.type != "cuda":
         raise ValueError(f"fused_adam_leaf: unsupported device {p.device}")
     s = _Scalars(count, lr, b1, b2, eps)
-    _launch("fused_adam_leaf", _lib().gqe_fused_adam_f32, p.data_ptr(),
-            g.data_ptr(), mu.data_ptr(), nu.data_ptr(), p.numel(),
-            *s.kernel_args(), device=p.device)
+    cuda_build.launch(LAUNCHES, "fused_adam_leaf", _lib().gqe_fused_adam_f32,
+                      p.data_ptr(), g.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+                      p.numel(), *s.kernel_args(), device=p.device)
 
 
 # ---------- stochastic rounding ----------
@@ -214,10 +205,10 @@ def fused_adam_leaf_sr(p, g, mu, nu, count: int, seed: int, lr: float,
     if p.device.type != "cuda":
         raise ValueError(f"fused_adam_leaf_sr: unsupported device {p.device}")
     s = _Scalars(count, lr, b1, b2, eps)
-    _launch("fused_adam_leaf_sr", _lib().gqe_fused_adam_sr, p.data_ptr(),
-            g.data_ptr(),
-            int(g.dtype == torch.float32), mu.data_ptr(), nu.data_ptr(),
-            p.numel(), *s.kernel_args(), seed & _M32, device=p.device)
+    cuda_build.launch(LAUNCHES, "fused_adam_leaf_sr", _lib().gqe_fused_adam_sr,
+                      p.data_ptr(), g.data_ptr(), int(g.dtype == torch.float32),
+                      mu.data_ptr(), nu.data_ptr(), p.numel(), *s.kernel_args(),
+                      seed & _M32, device=p.device)
 
 
 # ---------- over a parameter tree ----------

@@ -90,3 +90,50 @@ def test_device_pool_matches_jax(graph, structure):
     for k in POOL_FIELDS:
         np.testing.assert_array_equal(getattr(pt, k).numpy(),
                                       np.asarray(getattr(pj, k)), err_msg=k)
+
+
+def _same_batch(bt, bj):
+    for f in ("structure", "target_mode_id", "inter_mode_id"):
+        assert getattr(bt, f) == getattr(bj, f), f
+    for f in ("rels", "anchors", "targets", "negs", "neg_mask", "row_mask",
+              "hard_negs", "hard_neg_mask"):
+        a, b = getattr(bt, f), getattr(bj, f)
+        if b is None:
+            assert a is None, f
+        else:
+            assert a.dtype == b.dtype, f
+            np.testing.assert_array_equal(a, b, err_msg=f)
+    assert bt.batch_size == bj.batch_size and bt.n_valid == bj.n_valid
+
+
+# (batch_size, neg_width, hard_neg_width, rng seed or None): the training
+# draw of one negative, an eval batch truncating the stored lists, and
+# subsampled lists wider than the width.
+BATCH_KINDS = [(16, 1, 0, 11), (16, 8, 0, None), (None, 4, 3, 12), (32, 1, 1, 13)]
+
+
+@pytest.mark.parametrize("kind", range(len(BATCH_KINDS)))
+@pytest.mark.parametrize("structure", ["1p", "2p", "3p", "2i", "3i", "ip", "pi"])
+def test_group_by_formula_and_make_batch_match_jax(structure, kind):
+    from graphqembed_tpu.data.queries import group_by_formula as jax_group_by_formula
+    from graphqembed_tpu.data.queries import make_batch as jax_make_batch
+    from graphqembed_tpu_torch.data.queries import group_by_formula, make_batch
+
+    g_t = synthetic_graph(seed=7, scale=0.5, avg_degree=6.0)
+    g_j = jax_graph(seed=7, scale=0.5, avg_degree=6.0)
+    qs_t = QuerySampler(g_t, np.random.default_rng(4), max_negs=10).sample_many(
+        structure, 60)
+    qs_j = JaxSampler(g_j, np.random.default_rng(4), max_negs=10).sample_many(
+        structure, 60)
+    by_t, by_j = group_by_formula(qs_t), jax_group_by_formula(qs_j)
+    assert [f.serialize() for f in by_t] == [f.serialize() for f in by_j]
+    bs, width, hard_width, seed = BATCH_KINDS[kind]
+    rng_t = None if seed is None else np.random.default_rng(seed)
+    rng_j = None if seed is None else np.random.default_rng(seed)
+    for (ft, chunk_t), chunk_j in zip(by_t.items(), by_j.values()):
+        _same_queries(chunk_t, chunk_j)
+        n = bs or len(chunk_t)
+        for i in range(0, len(chunk_t), n):
+            kw = dict(batch_size=bs, neg_width=width, hard_neg_width=hard_width)
+            _same_batch(make_batch(g_t.schema, chunk_t[i:i + n], rng=rng_t, **kw),
+                        jax_make_batch(g_j.schema, chunk_j[i:i + n], rng=rng_j, **kw))

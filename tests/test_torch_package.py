@@ -107,3 +107,19 @@ def test_chip_smoke_fails_alone_outside_the_repository(tmp_path):
     r = _run(["chip_smoke.py"], str(tmp_path))
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_library_hash_covers_each_sources_own_flags(monkeypatch):
+    """Each CUDA source carries its own nvcc flags (fused_adam.cu keeps
+    -fmad=false for bit-exactness; kernels.cu does not), and the built
+    library's name changes when they do, so a flag change rebuilds."""
+    from graphqembed_tpu_torch.ops import cuda_build
+
+    assert "-fmad=false" in cuda_build.nvcc_flags("gqe_fused_adam")
+    assert "-fmad=false" not in cuda_build.nvcc_flags("gqe_kernels")
+    before = {n: cuda_build.lib_path(n) for n in cuda_build.SOURCES}
+    assert len(set(before.values())) == len(before)
+    src, flags = cuda_build.SOURCES["gqe_kernels"]
+    monkeypatch.setitem(cuda_build.SOURCES, "gqe_kernels", (src, flags + ("-lineinfo",)))
+    assert cuda_build.lib_path("gqe_kernels") != before["gqe_kernels"]
+    assert cuda_build.lib_path("gqe_fused_adam") == before["gqe_fused_adam"]
