@@ -6,13 +6,19 @@ points, evaluates what it trained, and checks what comes out.
 
     python3 chip_smoke.py             # the phases below; needs one card
     python3 chip_smoke.py --profile   # adds a torch.profiler breakdown of
-                                      # one train chunk (device time by kernel)
+                                      # one 2p and one 3i chunk of the dense
+                                      # and the rows path (device time by
+                                      # kernel, idle share)
 
 Phases, each printing one JSON line; any failure exits non-zero:
   build      compile csrc/*.cu with nvcc (one process per source, together)
   kernels    each fused-Adam kernel against its plain version at the main
              path's shapes, with its time, bytes, bound and the library
-             yardstick
+             yardstick; the sorted-rows SR Adam at [35200,128], L=2,560 on
+             three id sets (uniform with repeats, one real 3i batch of the
+             bench pools, all ids in 64 rows), bit for bit against its plain
+             version and against the dense SR kernel fed the same gradient,
+             timed beside the dense route it replaces
   kernel_bench
              fused_intersection against its plain version at [3,4096,128]
              and [2,1024,128], min and mean; then the port's kernel bench
@@ -27,6 +33,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
              bfloat16 storage and compute, FusedAdamOpt; 2 warm-up chunks and
              20 timed chunks of 100 steps alternating 2p/3i; then one
              float32-storage chunk
+  train_rows the same workload and schedule with rows_grad_update=True: the
+             table updated from row gradients by the sorted-rows kernel
+             (1 rows + 3 float32 launches per step, no dense SR launch);
+             one step on a batch with no repeated id bit-identical to the
+             dense step; q/s beside the dense path's
+  train_sparse
+             bench.py's fp32-sparse and bf16-sparse variants (lazy sparse
+             Adam on the table): 2 warm-up + 10 timed chunks of 100 steps
+  multitask  run_train_device on all 7 structures of the bench graph (300
+             queries each), rows_grad_update=True: 100 burn-in steps on 1p,
+             then 700 steps in two rounds of 50-step chunks
   eval       AUC (one negative), hard AUC and APR of the trained parameters
              on held-out queries of the bench graph (500 2p, 500 3i, 200
              each of 2i, ip, pi; fresh seed, training queries dropped;
@@ -110,7 +127,7 @@ def phase_build():
           "built": sorted(info["logs"])})
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, work: dict):
     import torch
 
     from graphqembed_tpu_torch.ops import fused_adam as fa
@@ -232,8 +249,96 @@ def phase_kernels(dev):
                              "call_ms": call_ms, "plain_ms": plain,
                              "library_ms": None,
                              "bound_ms": b_ms, "bound_by": b_by}}}
+    out["fused_adam_table_sorted_rows_sr"] = check_rows_kernel(dev, work, rnd,
+                                                               adam_state, lr)
     emit({"phase": "kernels", **out})
     return out
+
+
+def rows_cost(n: int, d: int, length: int) -> tuple[int, int]:
+    """(bytes, operations) of the sorted-rows SR Adam: read and write p, mu,
+    nu in bfloat16 (12 B per element), read L bfloat16 rows and the int32
+    order [L] and starts [n+1]; per element the SR Adam step (62 operations,
+    as the dense SR kernel's count) and one add per row-gradient value."""
+    return 12 * n * d + 2 * length * d + 4 * length + 4 * (n + 1), \
+        62 * n * d + length * d
+
+
+def check_rows_kernel(dev, work: dict, rnd, adam_state, lr):
+    """fused_adam_table_sorted_rows_sr at the rows path's shapes, [35200,128]
+    bfloat16 and L = 2,560 ids (3i: B·(A+2) = 512·5), on three id sets.
+    Tolerance: bit-exact against the plain version on the card (the same
+    sorted-order float32 sum, the same rounding: -fmad=false) and against
+    the dense SR kernel fed the plain version's float32 gradient with the
+    same seed (the same hash and element index)."""
+    import torch
+
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.training.device_data import _batch_ids, _select_batches
+
+    shape = (35200, 128)
+    n, d = shape
+    length = 2560
+    gen = torch.Generator().manual_seed(3)
+    batch = _select_batches(work["cfg"], torch.Generator(device=dev).manual_seed(5),
+                            1, work["data"].pools["3i"], True)
+    hub_rows = torch.randperm(n, generator=gen)[:64]
+    id_sets = {
+        "uniform": torch.randint(0, n, (length,), generator=gen).to(dev),
+        "bench_3i_batch": _batch_ids(batch)[0].reshape(-1),
+        "skewed_64_rows": hub_rows[torch.randint(0, 64, (length,), generator=gen)].to(dev),
+    }
+    seed, count = 3 * 4 + 3, 3
+    rows_out = []
+    same = lambda a, b: torch.equal(a.view(torch.int16), b.view(torch.int16))  # noqa: E731
+    for name, ids in id_sets.items():
+        check(ids.numel() == length, f"{name}: {ids.numel()} ids")
+        rows = rnd((length, d), 0.01).bfloat16()
+        base = adam_state(shape, torch.bfloat16)
+        k, q, r = ([x.clone() for x in base] for _ in range(3))
+        sids, order, starts = fa.presort_row_ids(ids, n)
+        fa.fused_adam_table_sorted_rows_sr(*k, sids, order, rows, starts, count,
+                                           seed, lr)
+        fa.adam_step_rows_sr_plain(*q, ids, rows, count, seed, lr)
+        g = fa._rows_grad_plain(n, sids, order, rows)
+        fa.fused_adam_leaf_sr(r[0], g, r[1], r[2], count, seed, lr)
+        torch.cuda.synchronize()
+        vs_plain = all(same(a, b) for a, b in zip(k, q))
+        vs_dense = all(same(a, b) for a, b in zip(k, r))
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(k, q))
+        check(vs_plain, f"rows kernel differs from plain on {name}")
+        check(vs_dense, f"rows kernel differs from the dense SR step on {name}")
+
+        p, mu, nu = base
+
+        def dense_route():
+            """The route the rows path replaces: a zero bf16 table gradient,
+            index_add_ of the row gradients, the dense SR kernel."""
+            gt = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+            gt.index_add_(0, ids, rows)
+            fa.fused_adam_leaf_sr(p, gt, mu, nu, count, seed, lr)
+
+        def plain():
+            g = fa._rows_grad_plain(n, sids, order, rows)
+            fa.fused_adam_leaf_sr_plain(p, g, mu, nu, count, seed, lr)
+
+        kernel = lambda: fa.fused_adam_table_sorted_rows_sr(  # noqa: E731
+            p, mu, nu, sids, order, rows, starts, count, seed, lr)
+        n_bytes, n_ops = rows_cost(n, d, length)
+        b_ms, b_by = bound(n_bytes, n_ops)
+        rows_out.append({
+            "ids": name, "distinct_rows": int(torch.unique(ids).numel()),
+            "max_run": int(torch.bincount(ids).max()),
+            "bit_exact_vs_plain": vs_plain, "bit_exact_vs_dense_sr": vs_dense,
+            "max_abs_err": err, "ms": device_ms(kernel), "call_ms": time_ms(kernel),
+            "plain_ms": device_ms(plain, reps=5), "library_ms": device_ms(dense_route),
+            "bytes": n_bytes, "operations": n_ops, "bound_ms": b_ms,
+            "bound_by": b_by})
+    return {"check": rows_out, "tolerance": "bit-exact",
+            "max_abs_err": max(r["max_abs_err"] for r in rows_out),
+            "library": "dense route: zeros + index_add_ of the bf16 table "
+                       "gradient + fused_adam_leaf_sr",
+            "timing": {r["ids"]: r for r in rows_out}}
 
 
 def phase_kernel_bench(dev):
@@ -329,20 +434,16 @@ def phase_reference(dev):
     emit({"phase": "reference", "checks": rows})
 
 
-def phase_train(dev, profile: bool, card: str):
+def bench_workload():
+    """The JAX bench.py workload (bench.py:23-34): bio-synth graph at scale
+    40 (35,200 nodes), 1,500 2p + 1,500 3i queries, bilinear/min, d=128,
+    B=512; cfg is its bf16-storage-and-compute variant."""
     import numpy as np
-    import torch
 
     from graphqembed_tpu_torch.config import GQEConfig
     from graphqembed_tpu_torch.data.sampling import QuerySampler
     from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
-    from graphqembed_tpu_torch.models.params import init_params
-    from graphqembed_tpu_torch.ops import fused_adam as fa
-    from graphqembed_tpu_torch.training.device_data import (
-        DeviceTrainData,
-        default_optimizer,
-        make_scan_train_step,
-    )
+    from graphqembed_tpu_torch.training.device_data import DeviceTrainData
 
     t0 = time.perf_counter()
     graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
@@ -353,9 +454,54 @@ def phase_train(dev, profile: bool, card: str):
     sampler = QuerySampler(graph, np.random.default_rng(0), max_negs=30)
     queries = sampler.sample_many("2p", 1500) + sampler.sample_many("3i", 1500)
     data = DeviceTrainData(graph.schema, queries)
-    setup_s = time.perf_counter() - t0
     check(graph.schema.n_nodes == 35200, graph.schema.n_nodes)
+    return {"graph": graph, "cfg32": cfg32, "cfg": cfg, "queries": queries,
+            "data": data, "setup_s": time.perf_counter() - t0}
 
+
+def timed_chunks(run_chunk, n_warm: int, n_timed: int):
+    """n_warm + n_timed calls of run_chunk(i) -> (structure, loss); the
+    timed ones between CUDA events. Returns (losses, device s, wall s)."""
+    import torch
+
+    losses = [run_chunk(i) for i in range(n_warm)]
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    w0 = time.perf_counter()
+    losses += [run_chunk(i) for i in range(n_warm, n_warm + n_timed)]
+    b.record()
+    b.synchronize()
+    return losses, a.elapsed_time(b) / 1e3, time.perf_counter() - w0
+
+
+def falling_losses(losses, structures):
+    """Check that every loss is finite and each structure's last chunk is
+    below its first; returns {structure: [chunk losses]}."""
+    import numpy as np
+
+    vals = [(s, float(l)) for s, l in losses]
+    check(all(np.isfinite(v) for _, v in vals), f"non-finite loss: {vals}")
+    per = {s: [v for t, v in vals if t == s] for s in structures}
+    for s, vs in per.items():
+        check(len(vs) >= 2 and vs[-1] < vs[0],
+              f"{s} loss did not fall: {vs}")
+    return per
+
+
+def phase_train(dev, profile: bool, card: str, work: dict):
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.training.device_data import (
+        default_optimizer,
+        make_scan_train_step,
+    )
+
+    graph, cfg, cfg32 = work["graph"], work["cfg"], work["cfg32"]
+    queries, data, setup_s = work["queries"], work["data"], work["setup_s"]
     params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
     opt = default_optimizer(cfg)
     state = opt.init(params)
@@ -371,31 +517,20 @@ def phase_train(dev, profile: bool, card: str):
 
     # the main path: counts from 0, two warm-up chunks, 20 timed chunks
     fa.reset_launch_counts()
-    losses = [chunk(i) for i in range(2)]
-    torch.cuda.synchronize()
     n_timed = 20
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    w0 = time.perf_counter()
-    losses += [chunk(i) for i in range(2, 2 + n_timed)]
-    b.record()
-    b.synchronize()
-    wall = time.perf_counter() - w0
-    dev_s = a.elapsed_time(b) / 1e3
+    losses, dev_s, wall = timed_chunks(chunk, 2, n_timed)
     launches = dict(fa.LAUNCHES)
     steps = (2 + n_timed) * CHUNK
     check(launches["fused_adam_leaf_sr"] == steps,
           f"SR kernel launches {launches} for {steps} steps")
     check(launches["fused_adam_leaf"] == 3 * steps,
           f"f32 kernel launches {launches} for {steps} steps")
+    check(launches["fused_adam_table_sorted_rows_sr"] == 0,
+          f"the dense path launched the rows kernel: {launches}")
 
-    vals = [(s, float(l)) for s, l in losses]
-    check(all(np.isfinite(v) for _, v in vals), f"non-finite loss: {vals}")
     check(params["table"].dtype == torch.bfloat16, "table left bfloat16")
     check(bool(torch.isfinite(params["table"].float()).all()), "table not finite")
-    per = {s: [v for t, v in vals if t == s] for s in ("2p", "3i")}
-    for s, vs in per.items():
-        check(vs[-1] < vs[0], f"{s} loss did not fall: {vs[0]} -> {vs[-1]}")
+    per = falling_losses(losses, ("2p", "3i"))
     qps = cfg.batch_size * n_timed * CHUNK / dev_s
 
     prof = None
@@ -411,7 +546,8 @@ def phase_train(dev, profile: bool, card: str):
     p32, st32, l32 = run32(p32, st32, data.pools["3i"], "3i", gen, CHUNK, 1.0, True)
     l32 = float(l32)
     launches32 = dict(fa.LAUNCHES)
-    check(launches32 == {"fused_adam_leaf": 4 * CHUNK, "fused_adam_leaf_sr": 0},
+    check(launches32 == {"fused_adam_leaf": 4 * CHUNK, "fused_adam_leaf_sr": 0,
+                         "fused_adam_table_sorted_rows_sr": 0},
           f"fp32 chunk launches {launches32}")
     check(np.isfinite(l32) and bool(torch.isfinite(p32["table"]).all()),
           "fp32 chunk not finite")
@@ -426,7 +562,179 @@ def phase_train(dev, profile: bool, card: str):
           "launches": launches, "fp32_chunk": {"loss": l32, "launches": launches32},
           "profile": prof})
     return launches, {"graph": graph, "cfg": cfg, "params": params,
-                      "queries": queries}
+                      "queries": queries, "train_qps": qps}
+
+
+def phase_train_rows(dev, profile: bool, card: str, work: dict,
+                     dense_qps: float):
+    """The train phase's workload and schedule with rows_grad_update=True,
+    then one step on a batch with no repeated id on both paths from the same
+    parameters: the table, mu and nu must agree bit for bit."""
+    import torch
+
+    from graphqembed_tpu_torch.models.params import init_params, tree_paths
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.training import device_data as dd
+
+    graph, data = work["graph"], work["data"]
+    cfg = dataclasses.replace(work["cfg"], rows_grad_update=True)
+    params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+    opt = dd.default_optimizer(cfg)
+    state = opt.init(params)
+    run = dd.make_scan_train_step(cfg, opt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def chunk(i):
+        nonlocal params, state
+        s = ("2p", "3i")[i % 2]
+        params, state, loss = run(params, state, data.pools[s], s, gen, CHUNK,
+                                  1.0, s == "3i" and cfg.hard_neg_alternate)
+        return s, loss
+
+    # the rows path: counts from 0 just before, read just after
+    fa.reset_launch_counts()
+    n_timed = 20
+    losses, dev_s, wall = timed_chunks(chunk, 2, n_timed)
+    launches = dict(fa.LAUNCHES)
+    steps = (2 + n_timed) * CHUNK
+    check(launches == {"fused_adam_leaf": 3 * steps, "fused_adam_leaf_sr": 0,
+                       "fused_adam_table_sorted_rows_sr": steps},
+          f"rows path launches {launches} for {steps} steps")
+    check(params["table"].dtype == torch.bfloat16, "table left bfloat16")
+    check(bool(torch.isfinite(params["table"].float()).all()), "table not finite")
+    per = falling_losses(losses, ("2p", "3i"))
+    qps = cfg.batch_size * n_timed * CHUNK / dev_s
+    prof = None
+    if profile:
+        prof = profile_chunk(chunk, 2 + n_timed, dev_s * 1e3 / (n_timed * CHUNK))
+
+    # one step, no repeated id: rows step == dense step, bit for bit
+    pool = data.pools["3i"]
+    batch = dd._select_batches(cfg, torch.Generator(device=dev).manual_seed(9), 1,
+                               pool, True)
+    perm = torch.randperm(graph.schema.n_nodes,
+                          generator=torch.Generator().manual_seed(9)).to(dev)
+    ids = perm[:cfg.batch_size * 5].reshape(1, cfg.batch_size, 5)
+    batch = dict(batch, anchors=ids[..., :3], targets=ids[..., 3], negs=ids[..., 4])
+    after = {}
+    for rows in (False, True):
+        c = dataclasses.replace(cfg, rows_grad_update=rows)
+        p = init_params(c, graph.schema, torch.Generator().manual_seed(1))
+        o = dd.FusedAdamOpt(c.lr)
+        b = dd._augment_rows_fast(batch, graph.schema.n_nodes) if rows else batch
+        (p, st), _ = dd._scan(dd._train_body(c, o, "3i", 1.0), (p, o.init(p)), b)
+        after[rows] = (p["table"], st[0]["table"], st[1]["table"])
+    torch.cuda.synchronize()
+    identical = {k: torch.equal(a.view(torch.int16), b.view(torch.int16))
+                 for k, a, b in zip(("table", "mu", "nu"), after[False], after[True])}
+    check(all(identical.values()), f"rows and dense steps differ: {identical}")
+    emit({"phase": "train_rows", "card": card, "timed_steps": n_timed * CHUNK,
+          "device_s": dev_s, "wall_s": wall, "train_qps": qps,
+          "dense_train_qps": dense_qps, "ms_per_step": dev_s * 1e3 / (n_timed * CHUNK),
+          "loss_first": {s: v[0] for s, v in per.items()},
+          "loss_last": {s: v[-1] for s, v in per.items()},
+          "launches": launches, "one_step_identical_to_dense": identical,
+          "profile": prof})
+    return launches, qps
+
+
+def phase_train_sparse(dev, card: str, work: dict):
+    """bench.py's fp32-sparse and bf16-sparse variants (bench.py:255-270):
+    the table under lazy sparse Adam, the operators under FusedAdamOpt, the
+    bench graph and queries, 2 warm-up + 10 timed chunks alternating 2p/3i."""
+    import torch
+
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.training import device_data as dd
+    from graphqembed_tpu_torch.training.sparse_adam import init_lazy_adam
+
+    graph, data = work["graph"], work["data"]
+    out = {}
+    for name, cfg in (("fp32-sparse", work["cfg32"]), ("bf16-sparse", work["cfg"])):
+        params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+        table = params.pop("table")
+        table_state = init_lazy_adam(table)
+        opt = dd.FusedAdamOpt(cfg.lr)
+        opt_state = opt.init(params)
+        run = dd.make_scan_train_step_sparse(cfg, opt)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def chunk(i):
+            nonlocal params, table, table_state, opt_state
+            s = ("2p", "3i")[i % 2]
+            params, table, table_state, opt_state, loss = run(
+                params, table, table_state, opt_state, data.pools[s], s, gen,
+                CHUNK, 1.0, s == "3i" and cfg.hard_neg_alternate)
+            return s, loss
+
+        fa.reset_launch_counts()
+        n_timed = 10
+        losses, dev_s, wall = timed_chunks(chunk, 2, n_timed)
+        launches = dict(fa.LAUNCHES)
+        steps = (2 + n_timed) * CHUNK
+        check(table_state.count == steps and opt_state[2] == steps,
+              f"{name}: counts {table_state.count}, {opt_state[2]} for {steps} steps")
+        check(launches == {"fused_adam_leaf": 3 * steps, "fused_adam_leaf_sr": 0,
+                           "fused_adam_table_sorted_rows_sr": 0},
+              f"{name} launches {launches}")
+        check(table.dtype == getattr(torch, cfg.storage_dtype), f"{name}: table dtype")
+        check(bool(torch.isfinite(table.float()).all()), f"{name}: table not finite")
+        per = falling_losses(losses, ("2p", "3i"))
+        out[name] = {"timed_steps": n_timed * CHUNK, "device_s": dev_s,
+                     "wall_s": wall,
+                     "train_qps": cfg.batch_size * n_timed * CHUNK / dev_s,
+                     "loss_first": {s: v[0] for s, v in per.items()},
+                     "loss_last": {s: v[-1] for s, v in per.items()},
+                     "launches": launches}
+    emit({"phase": "train_sparse", "card": card, **out})
+
+
+def phase_multitask(dev, card: str, work: dict):
+    """run_train_device on all 7 structures of the bench graph, 300 sampled
+    queries each, rows_grad_update=True (bf16): 100 burn-in steps on 1p,
+    then 700 multitask steps (two rounds of 7 structures × 50-step chunks),
+    so every structure trains two chunks."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.config import STRUCTURES
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.training import device_data as dd
+
+    graph = work["graph"]
+    cfg = dataclasses.replace(work["cfg"], rows_grad_update=True)
+    t0 = time.perf_counter()
+    sampler = QuerySampler(graph, np.random.default_rng(7), max_negs=30)
+    queries = [q for s in STRUCTURES for q in sampler.sample_many(s, 300)]
+    data = dd.DeviceTrainData(graph.schema, queries)
+    setup_s = time.perf_counter() - t0
+    check(data.structures == list(STRUCTURES), f"structures {data.structures}")
+    params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+    burn, total, chunk = 100, 800, 50
+    fa.reset_launch_counts()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    params, state, losses = dd.run_train_device(
+        cfg, graph.schema, params, data, total_steps=total, burn_in_steps=burn,
+        chunk=chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - w0
+    launches = dict(fa.LAUNCHES)
+    check(state[2] == total, f"multitask took {state[2]} steps, want {total}")
+    check(launches == {"fused_adam_leaf": 3 * total, "fused_adam_leaf_sr": 0,
+                       "fused_adam_table_sorted_rows_sr": total},
+          f"multitask launches {launches}")
+    for s, vs in losses.items():
+        check(len(vs) >= 2 and all(np.isfinite(vs)) and vs[-1] < vs[0],
+              f"multitask {s}: losses {vs}")
+    check(bool(torch.isfinite(params["table"].float()).all()), "table not finite")
+    emit({"phase": "multitask", "card": card, "setup_s": setup_s, "wall_s": wall,
+          "steps": total, "burn_in_steps": burn, "chunk": chunk,
+          "train_qps_wall": cfg.batch_size * total / wall,
+          "losses": losses, "launches": launches})
 
 
 def _batch_count(queries, structures, batch_size):
@@ -589,10 +897,15 @@ def main(argv):
 
     card = card_name_and_power()
     phase_build()
-    kern = phase_kernels(dev)
+    work = bench_workload()
+    kern = phase_kernels(dev, work)
     kb = phase_kernel_bench(dev)
     phase_reference(dev)
-    launches, trained = phase_train(dev, "--profile" in argv, card)
+    launches, trained = phase_train(dev, "--profile" in argv, card, work)
+    rows_launches, _ = phase_train_rows(dev, "--profile" in argv, card, work,
+                                        trained["train_qps"])
+    phase_train_sparse(dev, card, work)
+    phase_multitask(dev, card, work)
     eval_launches = phase_eval(trained, card)
 
     print(card, flush=True)
@@ -617,6 +930,17 @@ def main(argv):
          "bound_ms": sr_t["bound_ms"], "bound_by": sr_t["bound_by"],
          "library_ms": sr_t["library_ms"]},
     ]
+    rows_k = kern["fused_adam_table_sorted_rows_sr"]
+    rows_t = rows_k["timing"]["bench_3i_batch"]
+    kernels.append(
+        {"name": "fused_adam_table_sorted_rows_sr", "route": "cuda",
+         "source": "graphqembed_tpu_torch/csrc/fused_adam.cu",
+         "replaces": "graphqembed_tpu/ops/fused_adam.py:353",
+         "launches": rows_launches["fused_adam_table_sorted_rows_sr"],
+         "max_abs_err": rows_k["max_abs_err"],
+         "ms": rows_t["ms"], "plain_ms": rows_t["plain_ms"],
+         "bound_ms": rows_t["bound_ms"], "bound_by": rows_t["bound_by"],
+         "library_ms": rows_t["library_ms"]})
     main_path = {"fused_intersection": eval_launches["fused_intersection"],
                  "gather_normalize": kb["launches"]["gather_normalize"],
                  "sddmm_scores": kb["launches"]["sddmm_scores"]}

@@ -1,8 +1,10 @@
 // One-pass Adam for the GQE train step, for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of graphqembed_tpu/ops/fused_adam.py:
-//   gqe_fused_adam_f32 <- fused_adam_leaf    (_adam_kernel)
-//   gqe_fused_adam_sr  <- fused_adam_leaf_sr (_adam_kernel_sr)
+// Replaces the three Pallas TPU kernels of graphqembed_tpu/ops/fused_adam.py:
+//   gqe_fused_adam_f32     <- fused_adam_leaf    (_adam_kernel)
+//   gqe_fused_adam_sr      <- fused_adam_leaf_sr (_adam_kernel_sr)
+//   gqe_fused_adam_rows_sr <- fused_adam_table_sorted_rows_sr
+//                             (_adam_kernel_rows_sr); see its own note below
 //
 //   mu' = b1*mu + (1-b1)*g
 //   nu' = b2*nu + (1-b2)*(g*g)
@@ -104,6 +106,99 @@ __global__ void adam_sr_kernel(uint16_t* __restrict__ p, const G* __restrict__ g
   }
 }
 
+// ---- gqe_fused_adam_rows_sr: the bfloat16 table from sorted row gradients.
+//
+// Bound by device-memory bytes: 12 B per table element (read p, mu, nu in
+// bfloat16, write them back) plus L*d*2 B of bfloat16 row gradients (plus
+// 4 B per entry of `order` and per row of `starts`). At [35200, 128] and
+// L = 2,560: 54.07 + 0.66 MB = 54.7 MB (54.9 MB with order and starts),
+// 16.3 us at 3.35 TB/s.
+//
+// Dense semantics in one pass over the whole table: every one of the N*d
+// elements is read and written once, including rows no id names (g = 0, so
+// their moments decay), and no [N, d] gradient exists in device memory.
+// Each thread owns one (row, 8-column group): it reads its row's run of the
+// sorted entries, [starts[r], starts[r+1]), takes row order[j] of the row
+// gradients with one 16-byte load per entry, sums in float32 in sorted
+// order starting from 0, then applies the update in registers and writes
+// p, mu, nu with 16-byte stores. No atomics and no shared memory: the TPU
+// kernel built each tile's gradient with a one-hot matmul on the MXU, a
+// scatter the GPU does not need. A thread whose row is a hub (many entries)
+// loops longer; that is correct, and costs that block time. The order of
+// the sum is the plain version's (ops/fused_adam.py::_rows_grad_plain), and
+// the update, hash, element index r*d + c and stream keys are those of
+// adam_sr_kernel, so for the same seed and gradient it writes the same bits.
+
+constexpr int kRowVec = 8;  // bfloat16 values per 16-byte load
+
+__device__ __forceinline__ void unpack8(const uint4& v, float* x) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    x[2 * k] = bf16_to_f32(static_cast<uint16_t>(w[k] & 0xFFFFu));
+    x[2 * k + 1] = bf16_to_f32(static_cast<uint16_t>(w[k] >> 16));
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const uint16_t* h) {
+  uint4 v;
+  v.x = static_cast<uint32_t>(h[0]) | (static_cast<uint32_t>(h[1]) << 16);
+  v.y = static_cast<uint32_t>(h[2]) | (static_cast<uint32_t>(h[3]) << 16);
+  v.z = static_cast<uint32_t>(h[4]) | (static_cast<uint32_t>(h[5]) << 16);
+  v.w = static_cast<uint32_t>(h[6]) | (static_cast<uint32_t>(h[7]) << 16);
+  return v;
+}
+
+__global__ void adam_rows_sr_kernel(uint16_t* __restrict__ p, uint16_t* __restrict__ mu,
+                                    uint16_t* __restrict__ nu,
+                                    const int32_t* __restrict__ order,
+                                    const uint16_t* __restrict__ rows,
+                                    const int32_t* __restrict__ starts, int64_t n, int d,
+                                    AdamScalars s, uint32_t seed) {
+  const uint32_t key_p = fmix32(seed + kGolden * 1u);
+  const uint32_t key_mu = fmix32(seed + kGolden * 2u);
+  const uint32_t key_nu = fmix32(seed + kGolden * 3u);
+  const int groups = d / kRowVec;
+  const int64_t total = n * groups;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       t < total; t += stride) {
+    const int64_t r = t / groups;
+    const int c0 = static_cast<int>(t - r * groups) * kRowVec;
+    float g[kRowVec];
+#pragma unroll
+    for (int e = 0; e < kRowVec; ++e) g[e] = 0.0f;
+    const int j1 = starts[r + 1];
+    for (int j = starts[r]; j < j1; ++j) {
+      const int64_t src = static_cast<int64_t>(order[j]) * d + c0;
+      float x[kRowVec];
+      unpack8(*reinterpret_cast<const uint4*>(rows + src), x);
+#pragma unroll
+      for (int e = 0; e < kRowVec; ++e) g[e] = g[e] + x[e];
+    }
+    const int64_t i0 = r * d + c0;
+    float pf[kRowVec], mf[kRowVec], vf[kRowVec];
+    unpack8(*reinterpret_cast<const uint4*>(p + i0), pf);
+    unpack8(*reinterpret_cast<const uint4*>(mu + i0), mf);
+    unpack8(*reinterpret_cast<const uint4*>(nu + i0), vf);
+    uint16_t po[kRowVec], mo[kRowVec], vo[kRowVec];
+#pragma unroll
+    for (int e = 0; e < kRowVec; ++e) {
+      const float gi = g[e];
+      const float m = s.b1 * mf[e] + (1.0f - s.b1) * gi;
+      const float v = s.b2 * vf[e] + (1.0f - s.b2) * (gi * gi);
+      const float pn = pf[e] - s.lr * (m * s.c1) / (sqrtf(v * s.c2) + s.eps);
+      const int64_t i = i0 + e;
+      po[e] = sr_bf16(pn, sr_bits(key_p, i));
+      mo[e] = sr_bf16(m, sr_bits(key_mu, i));
+      vo[e] = sr_bf16(v, sr_bits(key_nu, i));
+    }
+    *reinterpret_cast<uint4*>(p + i0) = pack8(po);
+    *reinterpret_cast<uint4*>(mu + i0) = pack8(mo);
+    *reinterpret_cast<uint4*>(nu + i0) = pack8(vo);
+  }
+}
+
 unsigned int grid_for(int64_t n) {
   int64_t blocks = (n + kThreads - 1) / kThreads;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
@@ -140,6 +235,23 @@ int gqe_fused_adam_sr(void* p, const void* g, int g_is_f32, void* mu, void* nu,
         static_cast<uint16_t*>(p), static_cast<const uint16_t*>(g),
         static_cast<uint16_t*>(mu), static_cast<uint16_t*>(nu), n, s, seed);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// order [L] and starts [n+1] int32 (ops/fused_adam.py::presort_row_ids),
+// rows [L, d] bfloat16 in the ids' original order. d must be a multiple of
+// 8 and every pointer 16-byte aligned (PyTorch's allocations are).
+int gqe_fused_adam_rows_sr(void* p, void* mu, void* nu, const void* order,
+                           const void* rows, const void* starts, int64_t n, int d,
+                           float lr, float b1, float b2, float eps, float c1, float c2,
+                           uint32_t seed, void* stream) {
+  if (d <= 0 || d % kRowVec != 0) return static_cast<int>(cudaErrorInvalidValue);
+  AdamScalars s{lr, b1, b2, eps, c1, c2};
+  adam_rows_sr_kernel<<<grid_for(n * (d / kRowVec)), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint16_t*>(p), static_cast<uint16_t*>(mu), static_cast<uint16_t*>(nu),
+      static_cast<const int32_t*>(order), static_cast<const uint16_t*>(rows),
+      static_cast<const int32_t*>(starts), n, d, s, seed);
   return static_cast<int>(cudaGetLastError());
 }
 

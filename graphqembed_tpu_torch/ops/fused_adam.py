@@ -20,6 +20,16 @@ updated IN PLACE; the functions return nothing.
   counter-based hash of (seed, element index, stream), computed the same way
   by the kernel and by `sr_bits_plain`, so the two agree bit for bit. They
   are not the bits of the TPU's generator.
+- `fused_adam_table_sorted_rows_sr`: the SR step for the bfloat16 [N, d]
+  table driven by SPARSE row gradients (the rows path of
+  training/device_data.py): g[r] is the float32 sum of the bfloat16 row
+  gradients whose id is r, in sorted order, and rows no id names get g = 0,
+  so their moments still decay (dense-Adam semantics, with no [N, d]
+  gradient in device memory). Kernel `gqe_fused_adam_rows_sr`, in place of
+  the Pallas `fused_adam_table_sorted_rows_sr`; the same hash, element index
+  and streams as `gqe_fused_adam_sr`, so for the same seed and gradient the
+  two write the same bits. `presort_row_ids` sorts a chunk's ids once;
+  `fused_adam_table_rows_sr` sorts inline.
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel (adding one to LAUNCHES[name]) or raises.
@@ -36,7 +46,8 @@ from graphqembed_tpu_torch.models.params import tree_paths
 from graphqembed_tpu_torch.ops import cuda_build
 
 # Kernel launches since the last reset_launch_counts(), per wrapper.
-LAUNCHES = {"fused_adam_leaf": 0, "fused_adam_leaf_sr": 0}
+LAUNCHES = {"fused_adam_leaf": 0, "fused_adam_leaf_sr": 0,
+            "fused_adam_table_sorted_rows_sr": 0}
 
 _M32 = 0xFFFFFFFF
 _GOLDEN = 0x9E3779B9
@@ -114,6 +125,10 @@ def _lib() -> ctypes.CDLL:
              ctypes.c_void_p, ctypes.c_int64] + [f32] * 6
             + [ctypes.c_uint32, ctypes.c_void_p])
         lib.gqe_fused_adam_sr.restype = ctypes.c_int
+        lib.gqe_fused_adam_rows_sr.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int] + [f32] * 6
+            + [ctypes.c_uint32, ctypes.c_void_p])
+        lib.gqe_fused_adam_rows_sr.restype = ctypes.c_int
     return lib
 
 
@@ -211,22 +226,151 @@ def fused_adam_leaf_sr(p, g, mu, nu, count: int, seed: int, lr: float,
                       seed & _M32, device=p.device)
 
 
+# ---------- the table from sorted row gradients ----------
+
+def presort_row_ids(ids: torch.Tensor, n: int) -> tuple:
+    """Sort row ids for the sorted-rows kernel, batched over any leading
+    axes, so one call sorts every step of a chunk.
+
+    ids [..., L] -> (sorted_ids [..., L] in ids' dtype, order [..., L]
+    int32, starts [..., n+1] int32): sorted_ids = ids[order] by a STABLE
+    sort (equal ids keep their order, which fixes the order of each row's
+    float32 sum), and starts[r] is the first sorted position whose id is
+    >= r, so row r's entries are the positions [starts[r], starts[r+1]).
+    Starts are per ROW, not per tile: each CUDA thread owns part of one row
+    and finds its run with two loads. order and starts are int32, the
+    kernel's index type (L and n are below 2^31); the kernel never reads the
+    ids themselves. No padding: the JAX package pads to `rows_pad` for
+    Mosaic's aligned windows, and the CUDA kernel reads exactly its run.
+    Ids must lie in [0, n)."""
+    sids, order = torch.sort(ids, dim=-1, stable=True)
+    bounds = torch.arange(n + 1, dtype=sids.dtype, device=ids.device)
+    bounds = bounds.expand(tuple(ids.shape[:-1]) + (n + 1,)).contiguous()
+    starts = torch.searchsorted(sids.contiguous(), bounds, out_int32=True)
+    return sids, order.to(torch.int32), starts
+
+
+def _rows_grad_plain(n: int, sorted_ids, order, row_grads) -> torch.Tensor:
+    """The float32 [n, d] gradient: g[r] = Σ float32(bf16 row) over the
+    sorted entries with id r, added in sorted order, starting from 0. One
+    index_add_ per occurrence rank within a run of equal ids: inside one
+    call every index is distinct, so no two additions meet (CUDA's
+    index_add_ adds with atomics, in no fixed order, where they do)."""
+    d = row_grads.shape[-1]
+    g = torch.zeros(n, d, dtype=torch.float32, device=row_grads.device)
+    if sorted_ids.numel() == 0:
+        return g
+    rows = row_grads.to(torch.bfloat16).float()[order.long()]
+    rank = (torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
+            - torch.searchsorted(sorted_ids, sorted_ids))
+    for k in range(int(rank.max()) + 1):
+        sel = rank == k
+        g.index_add_(0, sorted_ids[sel], rows[sel])
+    return g
+
+
+def adam_step_rows_sr_plain(p, mu, nu, ids, row_grads, count: int, seed: int,
+                            lr: float, b1: float = 0.9, b2: float = 0.999,
+                            eps: float = 1e-8, bits=None) -> None:
+    """Plain PyTorch version of the sorted-rows kernel, in place: ids [L]
+    (any order, duplicates summed), row_grads [L, d] (rounded to bfloat16
+    first, as the JAX package's reference does). Builds the float32 dense
+    gradient in sorted order, then takes `fused_adam_leaf_sr_plain`'s step;
+    `bits` as there."""
+    n, d = p.shape
+    ids = ids.reshape(-1)
+    sids, order = torch.sort(ids, stable=True)
+    g = _rows_grad_plain(n, sids, order, row_grads.reshape(ids.shape[0], d))
+    fused_adam_leaf_sr_plain(p, g, mu, nu, count, seed, lr, b1, b2, eps,
+                             bits=bits)
+
+
+def fused_adam_table_sorted_rows_sr(p, mu, nu, sorted_ids, order, row_grads,
+                                    starts, count: int, seed: int, lr: float,
+                                    b1: float = 0.9, b2: float = 0.999,
+                                    eps: float = 1e-8) -> None:
+    """One bfloat16-storage Adam step for the [N, d] table from sorted row
+    gradients, in place, stochastically rounded with `seed` as
+    `fused_adam_leaf_sr`. (sorted_ids, order, starts) come from
+    `presort_row_ids`; row_grads [L, d] bfloat16 in the ids' ORIGINAL
+    order: the kernel reads row order[j] for sorted position j, so no
+    permuted copy is made (the JAX kernel takes the permuted rows). The
+    kernel needs d to be a multiple of 8 (16-byte loads)."""
+    name = "fused_adam_table_sorted_rows_sr"
+    bf16 = (torch.bfloat16,)
+    _check(name, (p, mu, nu), (bf16, bf16, bf16))
+    if p.dim() != 2:
+        raise ValueError(f"{name}: the table must be [N, d]; got {tuple(p.shape)}")
+    n, d = p.shape
+    length = order.shape[0]
+    want = {"sorted_ids": (sorted_ids, (length,), (torch.int32, torch.int64)),
+            "order": (order, (length,), (torch.int32,)),
+            "row_grads": (row_grads, (length, d), bf16),
+            "starts": (starts, (n + 1,), (torch.int32,))}
+    for arg, (t, shape, dtypes) in want.items():
+        if t.device != p.device:
+            raise ValueError(f"{name}: {arg} on {t.device}, the table on {p.device}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {arg} has shape {tuple(t.shape)}, expected {shape}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {arg} dtype {t.dtype}, expected one of {dtypes}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if p.device.type == "cpu":
+        g = _rows_grad_plain(n, sorted_ids, order, row_grads)
+        return fused_adam_leaf_sr_plain(p, g, mu, nu, count, seed, lr, b1, b2,
+                                        eps)
+    if p.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {p.device}")
+    if d % 8:
+        raise ValueError(f"{name}: the kernel needs d % 8 == 0; got d={d}")
+    s = _Scalars(count, lr, b1, b2, eps)
+    cuda_build.launch(LAUNCHES, name, _lib().gqe_fused_adam_rows_sr,
+                      p.data_ptr(), mu.data_ptr(), nu.data_ptr(),
+                      order.data_ptr(), row_grads.data_ptr(), starts.data_ptr(),
+                      n, d, *s.kernel_args(), seed & _M32, device=p.device)
+
+
+def fused_adam_table_rows_sr(p, mu, nu, ids, row_grads, count: int, seed: int,
+                             lr: float, b1: float = 0.9, b2: float = 0.999,
+                             eps: float = 1e-8) -> None:
+    """`fused_adam_table_sorted_rows_sr` for callers outside a chunk loop:
+    sorts ids [L] inline and rounds row_grads [L, d] to bfloat16."""
+    n, d = p.shape
+    ids = ids.reshape(-1)
+    sids, order, starts = presort_row_ids(ids, n)
+    rows = row_grads.reshape(ids.shape[0], d).to(torch.bfloat16).contiguous()
+    fused_adam_table_sorted_rows_sr(p, mu, nu, sids, order, rows, starts,
+                                    count, seed, lr, b1, b2, eps)
+
+
 # ---------- over a parameter tree ----------
 
 def fused_adam_tree(params: dict, grads: dict, mu: dict, nu: dict, count: int,
                     lr: float, b1: float = 0.9, b2: float = 0.999,
-                    eps: float = 1e-8) -> None:
+                    eps: float = 1e-8, table_rows=None) -> None:
     """One Adam step over every leaf, in place. bfloat16 leaves take the
     stochastic-rounding kernel with seed count·n_leaves + leaf index (leaves
-    in JAX's dict order), float32 leaves the float32 kernel."""
+    in JAX's dict order), float32 leaves the float32 kernel.
+
+    table_rows: optional (sorted_ids, order, row_grads, starts) for the
+    "table" leaf, which then takes the sorted-rows kernel with the seed the
+    dense path would give it (`grads` needs no "table" entry). The two paths
+    draw the same stochastic-rounding bits."""
     leaves = tree_paths(params)
     g_leaves = dict(tree_paths(grads))
     m_leaves = dict(tree_paths(mu))
     v_leaves = dict(tree_paths(nu))
     for li, (path, p) in enumerate(leaves):
+        seed = count * len(leaves) + li
+        if path == "table" and table_rows is not None:
+            sids, order, rows, starts = table_rows
+            fused_adam_table_sorted_rows_sr(
+                p.data, m_leaves[path], v_leaves[path], sids, order, rows,
+                starts, count, seed, lr, b1, b2, eps)
+            continue
         g = g_leaves[path].contiguous()
         if p.dtype == torch.bfloat16:
-            seed = count * len(leaves) + li
             fused_adam_leaf_sr(p.data, g, m_leaves[path], v_leaves[path],
                                count, seed, lr, b1, b2, eps)
         else:

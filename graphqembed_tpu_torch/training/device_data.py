@@ -9,7 +9,17 @@ between them.
 - hard negatives: intersection structures draw the negative from the hard
   pool on the steps `_hard_step` picks;
 - the step (`_train_body`): one table gather, the folded query DAG, margin
-  loss, backward, then the optimizer writes every leaf in place;
+  loss, backward, then the optimizer writes every leaf in place. Two
+  formulations: the one-gather dense step (a dense [N, d] table gradient
+  for the SR table kernel) and, under cfg.rows_grad_update with bfloat16
+  storage, the ROWS step: differentiate with respect to the gathered rows
+  and let the sorted-rows kernel update the table with dense-Adam
+  semantics (`FusedAdamOpt.apply_rows`), the ids of a whole chunk sorted
+  once up front (`_augment_rows_fast`);
+- `make_scan_train_step_sparse`: the table under lazy sparse Adam
+  (training/sparse_adam.py), O(touched rows) per step;
+- multitask: `make_multitask_mega_step` (rounds over the structures) and
+  `run_train_device` (burn-in on 1p, then weighted round-robin);
 - the Adam step count is a Python int and the losses stay on the device,
   so the loop never waits for the card.
 """
@@ -19,13 +29,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from graphqembed_tpu_torch.config import STRUCTURES, GQEConfig
+from graphqembed_tpu_torch.config import (
+    INTERSECT_STRUCTURES,
+    STRUCTURES,
+    GQEConfig,
+)
 from graphqembed_tpu_torch.data.queries import Query
 from graphqembed_tpu_torch.device import resolve_device
 from graphqembed_tpu_torch.graph.schema import Schema
 from graphqembed_tpu_torch.models import gqe
 from graphqembed_tpu_torch.models.params import tree_leaves, tree_map
-from graphqembed_tpu_torch.ops.fused_adam import fused_adam_tree
+from graphqembed_tpu_torch.ops.fused_adam import fused_adam_tree, presort_row_ids
+from graphqembed_tpu_torch.training.loop import structure_weight
+from graphqembed_tpu_torch.training.sparse_adam import lazy_adam_update
 
 POOL_FIELDS = ("anchors", "rels", "inter_modes", "targets", "negs",
                "neg_counts", "hard", "hard_counts")
@@ -173,6 +189,28 @@ class FusedAdamOpt:
         fused_adam_tree(params, grads, mu, nu, count, lr)
         return params, (mu, nu, count)
 
+    def apply_rows(self, params: dict, small_grads: dict, ids: torch.Tensor,
+                   row_grads: torch.Tensor, state, presorted=None):
+        """The rows step (bfloat16 table, direct encoder): every leaf but
+        the table as `apply`; the table by the sorted-rows kernel from row
+        gradients, with the seed `apply` would give it (count·n_leaves +
+        its leaf index over the whole tree), so both draw the same bits.
+        small_grads: grads of every leaf except "table"; ids [B, A+2],
+        row_grads [B, A+2, d]; presorted: (sorted_ids, order, starts) for
+        these ids from `presort_row_ids`, else they are sorted here."""
+        mu, nu, count = state
+        count += 1
+        lr = self.lr(count) if callable(self.lr) else float(self.lr)
+        n, d = params["table"].shape
+        ids = ids.reshape(-1)
+        if presorted is None:
+            presorted = presort_row_ids(ids, n)
+        sids, order, starts = presorted
+        rows = row_grads.reshape(ids.shape[0], d).to(torch.bfloat16).contiguous()
+        fused_adam_tree(params, small_grads, mu, nu, count, lr,
+                        table_rows=(sids, order, rows, starts))
+        return params, (mu, nu, count)
+
 
 def _grads_tree(params: dict, grads: list) -> dict:
     it = iter(grads)
@@ -184,15 +222,72 @@ def _grads_tree(params: dict, grads: list) -> dict:
     return rebuild(params)
 
 
+def _rows_fast(cfg: GQEConfig, optimizer) -> bool:
+    """Whether the rows step applies (see _train_body): opt-in through
+    cfg.rows_grad_update, for a bfloat16 table under FusedAdamOpt and the
+    direct encoder. A float32 table keeps the dense step, as in JAX."""
+    return (cfg.rows_grad_update and isinstance(optimizer, FusedAdamOpt)
+            and cfg.depth == 0 and cfg.storage_dtype != "float32")
+
+
+def _batch_ids(batch: dict) -> torch.Tensor:
+    """[..., B, A+2] table ids of a batch: anchors, target, negative."""
+    return torch.cat([batch["anchors"], batch["targets"][..., None],
+                      batch["negs"][..., None]], dim=-1)
+
+
+def _rows_grads(cfg: GQEConfig, small: dict, structure: str, weight: float,
+                table: torch.Tensor, batch: dict):
+    """Loss of one batch and its gradients with respect to the GATHERED
+    table rows and the leaves of `small` (every leaf but the table):
+    (loss, ids [B, A+2], row grads [B, A+2, d] in the table's dtype, grads
+    tree of `small`). A leaf the structure does not use gets zeros."""
+    ids = _batch_ids(batch)
+    rows = table.detach()[ids].requires_grad_()
+    loss = weight * gqe.margin_loss_from_rows(cfg, small, structure, rows,
+                                              batch["rels"], batch["inter_modes"])
+    g_rows, *g_small = torch.autograd.grad(
+        loss, [rows] + tree_leaves(small), allow_unused=True,
+        materialize_grads=True)
+    return loss.detach(), ids, g_rows, _grads_tree(small, g_small)
+
+
+def _augment_rows_fast(batch_xs: dict, n_table: int) -> dict:
+    """Attach the sorted-id metadata of the rows kernel to a chunk's
+    batches: ONE batched sort and searchsorted for all T steps
+    (`presort_row_ids` on [T, B·(A+2)] ids), so the step itself sorts
+    nothing."""
+    ids = _batch_ids(batch_xs)
+    sids, order, starts = presort_row_ids(ids.reshape(ids.shape[0], -1),
+                                          n_table)
+    return dict(batch_xs, sorted_ids=sids, sort_order=order, row_starts=starts)
+
+
 def _train_body(cfg: GQEConfig, optimizer: FusedAdamOpt, structure: str,
                 weight: float):
     """One training step on one pre-selected batch (a dict of [B, ...]
-    tensors): carry (params, opt_state) -> (carry, loss). The direct-encoder
-    one-gather formulation: one table gather, one dense table gradient."""
+    tensors): carry (params, opt_state) -> (carry, loss). Two formulations:
+
+    1. rows step (`_rows_fast`): gather the rows, differentiate with respect
+       to them and the small leaves, and let `FusedAdamOpt.apply_rows` update
+       the table from the row gradients: no [N, d] gradient exists;
+    2. one-gather dense step: one table gather, one dense table gradient."""
+    rows_fast = _rows_fast(cfg, optimizer)
 
     def body(carry, batch):
         params, opt_state = carry
         b = batch["targets"].shape[0]
+        if rows_fast:
+            small = {k: v for k, v in params.items() if k != "table"}
+            loss, ids, g_rows, g_small = _rows_grads(
+                cfg, small, structure, weight, params["table"], batch)
+            presorted = None
+            if "sorted_ids" in batch:
+                presorted = (batch["sorted_ids"], batch["sort_order"],
+                             batch["row_starts"])
+            params, opt_state = optimizer.apply_rows(
+                params, g_small, ids, g_rows, opt_state, presorted=presorted)
+            return (params, opt_state), loss
         leaves = tree_leaves(params)
         loss = weight * gqe.margin_loss_rows_onegather(
             cfg, params, structure, batch["anchors"], batch["rels"],
@@ -223,9 +318,10 @@ def _check_storage_optimizer(cfg: GQEConfig, optimizer):
         raise ValueError(
             "the port's train step takes the stochastic-rounding optimizer "
             f"(FusedAdamOpt); got {type(optimizer).__name__}")
-    if cfg.depth != 0 or cfg.rows_grad_update:
+    if cfg.depth != 0:
         raise NotImplementedError(
-            "only the direct-encoder one-gather step is ported")
+            "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 "
+            "item 9)")
 
 
 def default_optimizer(cfg: GQEConfig, lr=None) -> FusedAdamOpt:
@@ -248,9 +344,143 @@ def make_scan_train_step(cfg: GQEConfig, optimizer: FusedAdamOpt):
             generator: torch.Generator, n_steps: int, weight: float,
             use_hard: bool):
         batch_xs = _select_batches(cfg, generator, n_steps, pool, use_hard)
+        if _rows_fast(cfg, optimizer):
+            batch_xs = _augment_rows_fast(batch_xs, params["table"].shape[0])
         body = _train_body(cfg, optimizer, structure, weight)
         (params, opt_state), losses = _scan(body, (params, opt_state),
                                             batch_xs)
         return params, opt_state, losses.mean()
 
     return run
+
+
+def make_scan_train_step_sparse(cfg: GQEConfig, small_optimizer: FusedAdamOpt):
+    """The lazy-sparse table variant of make_scan_train_step: the loss is
+    built from GATHERED rows, so the table's gradients are [B·(A+2), d] row
+    gradients (never densified), and lazy sparse Adam
+    (training/sparse_adam.py) updates the table in O(touched rows). The
+    other leaves take `small_optimizer` (FusedAdamOpt: over float32 leaves,
+    the same update as the optax.adam the JAX package passes). Returns
+    run(small_params, table, table_state, opt_state, pool, structure,
+    generator, n_steps, weight, use_hard) -> (small_params, table,
+    table_state, opt_state, mean_loss); everything is updated in place."""
+    _check_storage_optimizer(cfg, small_optimizer)
+    gqe.set_matmul_precision(cfg)
+
+    def run(small_params, table, table_state, opt_state, pool: DevicePool,
+            structure: str, generator: torch.Generator, n_steps: int,
+            weight: float, use_hard: bool):
+        batch_xs = _select_batches(cfg, generator, n_steps, pool, use_hard)
+        losses = []
+        for t in range(n_steps):
+            loss, ids, g_rows, g_small = _rows_grads(
+                cfg, small_params, structure, weight, table,
+                {k: v[t] for k, v in batch_xs.items()})
+            table, table_state = lazy_adam_update(
+                table, table_state, ids.reshape(-1),
+                g_rows.reshape(-1, table.shape[-1]), lr=cfg.lr)
+            small_params, opt_state = small_optimizer.apply(
+                small_params, g_small, opt_state)
+            losses.append(loss)
+        return (small_params, table, table_state, opt_state,
+                torch.stack(losses).mean())
+
+    return run
+
+
+def derived_generator(device, seed: int, *path: int) -> torch.Generator:
+    """A generator on `device` seeded from (seed, *path) through numpy's
+    SeedSequence: the port's counterpart of JAX's fold_in chain, so a
+    dispatch's draws depend only on its place in the schedule."""
+    state = np.random.SeedSequence([seed, *path]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(
+        (int(state[0]) << 31) ^ int(state[1]))
+
+
+def make_multitask_mega_step(cfg: GQEConfig, optimizer: FusedAdamOpt,
+                             data: DeviceTrainData,
+                             structures: list[str] | None = None,
+                             neighbor_tables=None, mesh=None):
+    """Whole multitask ROUNDS per call: in each of n_rounds, every structure
+    takes steps_per weighted train steps (hard-negative alternation on the
+    intersection structures), in JAX's order and with its weights. The JAX
+    package fuses a call into one dispatch; here it is a loop of
+    make_scan_train_step calls, which is the same computation.
+
+    Batch draws: structure index si in round r uses
+    derived_generator(seed, r, si), as JAX's key is fold_in(fold_in(key, r),
+    si), so a call equals the same sequence of single-structure calls.
+
+    Returns run(params, opt_state, seed, n_rounds, steps_per)
+    -> (params, opt_state, losses [n_rounds, n_structures] on the device)."""
+    if neighbor_tables is not None:
+        raise NotImplementedError(
+            "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 item 9)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
+            "parallel/)")
+    _check_storage_optimizer(cfg, optimizer)
+    structures = list(structures or data.structures)
+    weights = [structure_weight(cfg, s) for s in structures]
+    use_hards = [s in INTERSECT_STRUCTURES and cfg.hard_neg_alternate
+                 for s in structures]
+    pools = [data.pools[s] for s in structures]
+    scan = make_scan_train_step(cfg, optimizer)
+
+    def run(params, opt_state, seed: int, n_rounds: int, steps_per: int):
+        losses = []
+        for r in range(n_rounds):
+            row = []
+            for si, s in enumerate(structures):
+                gen = derived_generator(pools[si].device, seed, r, si)
+                params, opt_state, ml = scan(params, opt_state, pools[si], s,
+                                             gen, steps_per, weights[si],
+                                             use_hards[si])
+                row.append(ml)
+            losses.append(torch.stack(row))
+        return params, opt_state, torch.stack(losses)
+
+    return run
+
+
+def run_train_device(cfg: GQEConfig, schema: Schema, params: dict,
+                     data: DeviceTrainData, total_steps: int,
+                     burn_in_steps: int = 0, chunk: int = 50,
+                     seed: int | None = None, log=None):
+    """Burn-in (1p only) then weighted round-robin multitask, `chunk` steps
+    per call of the scan step, in JAX's order. Dispatch i draws its batches
+    from derived_generator(seed, i) (JAX folds i into its key). Returns
+    (params, opt_state, losses_by_structure): per structure, the mean loss
+    of each of its chunks as Python floats (read once, at the end, so the
+    loop never waits for the card). log(done, structure, loss) gets the
+    chunk's loss as a device tensor, for the same reason."""
+    optimizer = default_optimizer(cfg)
+    opt_state = optimizer.init(params)
+    scan = make_scan_train_step(cfg, optimizer)
+    seed = cfg.seed if seed is None else seed
+    losses: dict[str, list] = {s: [] for s in data.structures}
+    done = 0
+    round_i = 0
+    while done < total_steps:
+        if done < burn_in_steps and "1p" in data.pools:
+            order = ["1p"]
+        else:
+            order = data.structures
+        for s in order:
+            if done >= total_steps:
+                break
+            t = min(chunk, total_steps - done)
+            pool = data.pools[s]
+            params, opt_state, mloss = scan(
+                params, opt_state, pool, s,
+                derived_generator(pool.device, seed, round_i), t,
+                structure_weight(cfg, s),
+                s in INTERSECT_STRUCTURES and cfg.hard_neg_alternate)
+            losses[s].append(mloss)
+            done += t
+            round_i += 1
+            if log:
+                log(done, s, mloss)
+    losses = {s: [float(v) for v in vs] for s, vs in losses.items()}
+    return params, opt_state, losses

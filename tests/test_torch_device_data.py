@@ -188,3 +188,226 @@ def test_train_step_rejects_unported_options():
     with pytest.raises(NotImplementedError):
         tdd.make_scan_train_step(dataclasses.replace(cfg, depth=1),
                                  tdd.FusedAdamOpt(0.01))
+
+
+# ---------- the rows step (cfg.rows_grad_update) ----------
+
+BF16 = dict(compute_dtype="bfloat16", storage_dtype="bfloat16")
+
+
+def _unique_id_batch(graph, queries, structure, cfg, seed=0):
+    """One step's batch from the pool (rels, modes), with anchors, targets
+    and negatives replaced by distinct node ids: no id repeats."""
+    _, qt = queries[structure]
+    pool = tdd.DevicePool(graph.schema, structure, qt, device="cpu")
+    batch = tdd._select_batches(cfg, torch.Generator().manual_seed(seed), 1,
+                                pool, True)
+    a = batch["anchors"].shape[-1]
+    perm = torch.randperm(graph.schema.n_nodes,
+                          generator=torch.Generator().manual_seed(seed))
+    ids = perm[:cfg.batch_size * (a + 2)].reshape(1, cfg.batch_size, a + 2)
+    return dict(batch, anchors=ids[..., :a], targets=ids[..., a],
+                negs=ids[..., a + 1])
+
+
+def test_rows_step_equals_dense_step_bit_for_bit_on_unique_ids(graph, queries):
+    """With no repeated id, the rows step (row gradients, sorted-rows
+    kernel's plain version) and the one-gather dense step (dense bf16 table
+    gradient, SR leaf step) write the same table, mu and nu bit for bit:
+    same gradients, same seed. B=32 is a power of two, so the dense loss's
+    sum/B and the rows loss's mean have the same gradient."""
+    kw = dict(CFG, **BF16, embed_dim=32)
+    out = {}
+    for rows in (False, True):
+        cfg = GQEConfig(**kw, rows_grad_update=rows)
+        batch = _unique_id_batch(graph, queries, "3i", cfg)
+        if rows:
+            batch = tdd._augment_rows_fast(batch, graph.schema.n_nodes)
+        params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0),
+                             device="cpu")
+        opt = tdd.FusedAdamOpt(cfg.lr)
+        (params, state), _ = tdd._scan(tdd._train_body(cfg, opt, "3i", 1.0),
+                                       (params, opt.init(params)), batch)
+        out[rows] = (params, state[0], state[1])
+    for dense_tree, rows_tree in zip(out[False], out[True]):
+        for (path, a), (_, b) in zip(tree_paths(dense_tree), tree_paths(rows_tree)):
+            assert torch.equal(a, b), path
+
+
+class _SpyOpt(tdd.FusedAdamOpt):
+    """FusedAdamOpt that keeps the gradients apply_rows is given."""
+
+    def apply_rows(self, params, small_grads, ids, row_grads, state,
+                   presorted=None):
+        self.seen = (small_grads, row_grads)
+        return super().apply_rows(params, small_grads, ids, row_grads, state,
+                                  presorted)
+
+
+@pytest.mark.parametrize("structure", ["2p", "3i"])
+def test_rows_step_grads_match_jax_rows_branch(graph, queries, structure):
+    """The row gradients and small-leaf gradients of one rows step against
+    jax.value_and_grad of the JAX rows branch (device_data.py:352-365) at
+    float32 compute, bf16 table, same batch and parameters. Tolerance: the
+    small leaves as tests/test_torch_gqe.py (rtol 1e-5, atol 1e-5 × the
+    leaf's largest magnitude); the row gradients are bfloat16 in both
+    packages (the cotangent of a bf16 gather), so a float32 difference of a
+    few ulps can round to the neighbouring bfloat16: rtol 2^-7 (one
+    bfloat16 ulp) with the same atol."""
+    from graphqembed_tpu.models import gqe as jgqe
+
+    kw = dict(CFG, storage_dtype="bfloat16")
+    cfg_j, cfg_t = JaxConfig(**kw), GQEConfig(**kw, rows_grad_update=True)
+    pj, _ = _pools(graph, queries, structure)
+    batch_j, _ = jdd._select_batches(cfg_j, jax.random.key(5), 1,
+                                     _jax_arrays(pj), structure == "3i")
+    b0 = {k: v[0] for k, v in batch_j.items()}
+    params_j = jax_init_params(cfg_j, graph.schema, jax.random.key(0))
+    ids = jnp.concatenate([b0["anchors"], b0["targets"][:, None],
+                           b0["negs"][:, None]], axis=1)
+    small_j = {k: v for k, v in params_j.items() if k != "table"}
+    _, (g_rows_j, g_small_j) = jax.value_and_grad(
+        lambda rows, sp: jgqe.margin_loss_from_rows(
+            cfg_j, sp, structure, rows, b0["rels"], b0["inter_modes"]),
+        argnums=(0, 1))(params_j["table"][ids], small_j)
+
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j), device="cpu")
+    opt = _SpyOpt(cfg_t.lr)
+    batch_t = {k: torch.from_numpy(np.asarray(v).astype(np.int64))
+               for k, v in batch_j.items()}
+    tdd._scan(tdd._train_body(cfg_t, opt, structure, 1.0),
+              (params_t, opt.init(params_t)), batch_t)
+    g_small_t, g_rows_t = opt.seen
+    assert g_rows_t.dtype == torch.bfloat16
+    for (path, a), (_, b) in zip(tree_paths(g_small_t), tree_paths(g_small_j)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=1e-5,
+                                   atol=1e-5 * float(np.abs(b).max()),
+                                   err_msg=path)
+    want = np.asarray(g_rows_j.astype(jnp.float32))
+    np.testing.assert_allclose(g_rows_t.float().numpy(), want, rtol=2.0 ** -7,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_rows_training_tracks_dense_training(graph):
+    """60 steps on 2i with cfg.rows_grad_update against the dense path from
+    the same parameters and draws (the JAX package's test of its rows path:
+    d=32, B=64, 300 queries): the mean losses agree within 0.15. They are
+    not bit-equal: the dense table gradient adds repeated ids in bfloat16,
+    the rows step in float32."""
+    kw = dict(CFG, **BF16, lr=0.01, embed_dim=32, batch_size=64)
+    g_t = synthetic_graph(seed=7, scale=0.5, avg_degree=6.0)
+    qt = QuerySampler(g_t, np.random.default_rng(0), max_negs=10).sample_many(
+        "2i", 300)
+    pool = tdd.DevicePool(graph.schema, "2i", qt, device="cpu")
+    losses = {}
+    for rows in (False, True):
+        cfg = GQEConfig(**kw, rows_grad_update=rows)
+        params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0),
+                             device="cpu")
+        opt = tdd.default_optimizer(cfg)
+        run = tdd.make_scan_train_step(cfg, opt)
+        params, state, loss = run(params, opt.init(params), pool, "2i",
+                                  torch.Generator().manual_seed(1), 60, 1.0, True)
+        assert state[2] == 60 and params["table"].dtype == torch.bfloat16
+        losses[rows] = loss.item()
+    assert abs(losses[False] - losses[True]) < 0.15, losses
+
+
+def test_augment_rows_fast_sorts_every_step_of_a_chunk(graph, queries):
+    cfg = GQEConfig(**CFG)
+    _, qt = queries["3i"]
+    pool = tdd.DevicePool(graph.schema, "3i", qt, device="cpu")
+    batch = tdd._select_batches(cfg, torch.Generator().manual_seed(2), 5, pool,
+                                True)
+    aug = tdd._augment_rows_fast(batch, graph.schema.n_nodes)
+    n, length = graph.schema.n_nodes, cfg.batch_size * 5
+    assert aug["sorted_ids"].shape == aug["sort_order"].shape == (5, length)
+    assert aug["row_starts"].shape == (5, n + 1)
+    for t in range(5):
+        ids = torch.cat([batch["anchors"][t], batch["targets"][t, :, None],
+                         batch["negs"][t, :, None]], 1).reshape(-1)
+        assert torch.equal(ids[aug["sort_order"][t].long()], aug["sorted_ids"][t])
+        assert torch.equal(torch.diff(aug["row_starts"][t]).long(),
+                           torch.bincount(ids, minlength=n))
+
+
+# ---------- multitask drivers ----------
+
+def test_structure_weight_matches_jax():
+    from graphqembed_tpu.training.loop import structure_weight as jsw
+    from graphqembed_tpu_torch.training.loop import structure_weight
+
+    kw = dict(path_weight=0.03, inter_weight=0.007)
+    for s in ("1p", "2p", "3p", "2i", "3i", "ip", "pi"):
+        assert structure_weight(GQEConfig(**kw), s) == jsw(JaxConfig(**kw), s)
+
+
+@pytest.fixture(scope="module")
+def multitask_data(graph):
+    g_t = synthetic_graph(seed=7, scale=0.5, avg_degree=6.0)
+    sampler = QuerySampler(g_t, np.random.default_rng(2), max_negs=10)
+    queries = []
+    for s in ("1p", "2p", "3i"):
+        queries += sampler.sample_many(s, 80)
+    return tdd.DeviceTrainData(graph.schema, queries, device="cpu")
+
+
+def test_run_train_device_multitask_trains_on_cpu(graph, multitask_data):
+    """Burn-in on 1p, then weighted round-robin over three structures, on
+    the rows step: every chunk's loss is finite and each structure's last
+    chunk is below its first."""
+    cfg = GQEConfig(**dict(CFG, **BF16, lr=0.03, batch_size=64),
+                    rows_grad_update=True)
+    params = init_params(cfg, graph.schema, torch.Generator().manual_seed(1),
+                         device="cpu")
+    params, state, losses = tdd.run_train_device(
+        cfg, graph.schema, params, multitask_data, total_steps=400,
+        burn_in_steps=100, chunk=50)
+    assert state[2] == 400
+    assert {s: len(v) for s, v in losses.items()} == {"1p": 4, "2p": 2, "3i": 2}
+    for s, vs in losses.items():
+        assert all(np.isfinite(vs)) and vs[-1] < vs[0], (s, vs)
+
+
+def test_mega_step_matches_sequential_calls(graph, multitask_data):
+    """One make_multitask_mega_step call equals the same sequence of
+    make_scan_train_step calls with derived_generator(seed, r, si), bit for
+    bit, as the JAX mega-step equals its sequence under fold_in."""
+    cfg = GQEConfig(**dict(CFG, batch_size=16))
+    structures = multitask_data.structures
+    outs = []
+    for mega in (True, False):
+        params = init_params(cfg, graph.schema, torch.Generator().manual_seed(2),
+                             device="cpu")
+        opt = tdd.FusedAdamOpt(cfg.lr)
+        state = opt.init(params)
+        if mega:
+            run = tdd.make_multitask_mega_step(cfg, opt, multitask_data)
+            params, state, losses = run(params, state, 7, 2, 3)
+        else:
+            from graphqembed_tpu_torch.training.loop import structure_weight
+            scan = tdd.make_scan_train_step(cfg, opt)
+            losses = torch.zeros(2, len(structures))
+            for r in range(2):
+                for si, s in enumerate(structures):
+                    params, state, ml = scan(
+                        params, state, multitask_data.pools[s], s,
+                        tdd.derived_generator("cpu", 7, r, si), 3,
+                        structure_weight(cfg, s), s == "3i")
+                    losses[r, si] = ml
+        outs.append((params, losses))
+    assert outs[0][1].shape == (2, len(structures))
+    assert torch.equal(outs[0][1], outs[1][1])
+    for (path, a), (_, b) in zip(tree_paths(outs[0][0]), tree_paths(outs[1][0])):
+        assert torch.equal(a, b), path
+
+
+def test_mega_step_refuses_what_is_not_ported(multitask_data):
+    cfg = GQEConfig(**CFG)
+    opt = tdd.FusedAdamOpt(cfg.lr)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+        tdd.make_multitask_mega_step(cfg, opt, multitask_data, mesh=object())
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tdd.make_multitask_mega_step(cfg, opt, multitask_data,
+                                     neighbor_tables=object())

@@ -59,7 +59,8 @@ def test_leaf_wrapper_uses_plain_on_cpu_and_counts_no_launch():
     fa.fused_adam_leaf_plain(*b, 1, 0.1)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a[0], p)
-    assert fa.LAUNCHES == {"fused_adam_leaf": 0, "fused_adam_leaf_sr": 0}
+    assert fa.LAUNCHES == {"fused_adam_leaf": 0, "fused_adam_leaf_sr": 0,
+                           "fused_adam_table_sorted_rows_sr": 0}
 
 
 def test_wrappers_check_their_inputs():
