@@ -20,12 +20,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
              version and against the dense SR kernel fed the same gradient,
              timed beside the dense route it replaces
   kernel_bench
-             fused_intersection against its plain version at [3,4096,128]
-             and [2,1024,128], min and mean; then the port's kernel bench
+             fused_intersection against its plain version at [3,1024,128],
+             [2,1024,128] (eval's batches), [3,4096,128] (the JAX bench's),
+             a ragged [3,1000,128] and seven other widths (d 4 to 208), min
+             and mean; then the port's kernel bench
              (graphqembed_tpu_torch/experiments/kernel_bench.py), the only
              caller of gather_normalize and sddmm_scores: each of the three
-             ops/kernels.py kernels against its plain version and timed at
-             the JAX bench's shapes
+             ops/kernels.py kernels against its plain version and timed,
+             gather and scoring at the JAX bench's shapes, the intersection
+             at the first three of those shapes
   reference  a few float32 train steps on the card against the same steps
              on the CPU (plain versions), same batches
   train      the bench workload: bio-synth graph (scale 40, 35,200 nodes),
@@ -342,9 +345,12 @@ def check_rows_kernel(dev, work: dict, rnd, adam_state, lr):
 
 
 def phase_kernel_bench(dev):
-    """fused_intersection against its plain version at the eval path's
-    widths; then the kernel bench, whose launches are the main path of
-    gather_normalize and sddmm_scores. Tolerances: kernel_bench.TOLERANCE."""
+    """fused_intersection against its plain version at eval's shapes
+    ([3,1024,128] for 3i, [2,1024,128] for 2i/ip/pi), the JAX bench's
+    [3,4096,128], a ragged [3,1000,128] (no multiple of a row tile) and seven
+    other widths (d from 4 to 208), min and mean; then the kernel bench, whose launches are the main path of
+    gather_normalize and sddmm_scores, and which times the intersection at
+    the first three shapes. Tolerances: kernel_bench.TOLERANCE."""
     import torch
 
     from graphqembed_tpu_torch.experiments import kernel_bench as kb
@@ -352,21 +358,25 @@ def phase_kernel_bench(dev):
 
     gen = torch.Generator().manual_seed(1)
     checks = []
-    for k, b in ((3, 4096), (2, 1024)):
-        zs = torch.randn(k, b, 128, generator=gen).to(dev)
-        pre, post = ((torch.randn(128, 128, generator=gen) / 128 ** 0.5).to(dev)
+    # the kernel is compiled per padded width: a few widths and ragged row
+    # counts beside the four shapes of eval and the bench
+    widths = ((2, 37, 4), (3, 50, 36), (4, 31, 64), (2, 70, 100), (1, 1, 128),
+              (3, 33, 144), (2, 40, 208))
+    for k, b, d in (*kb.INTERSECTION_SHAPES, (3, 1000, 128), *widths):
+        zs = torch.randn(k, b, d, generator=gen).to(dev)
+        pre, post = ((torch.randn(d, d, generator=gen) / d ** 0.5).to(dev)
                      for _ in range(2))
         for kind in ("min", "mean"):
             err = kb.errors(K.fused_intersection(zs, pre, post, kind),
                             K.fused_intersection_plain(zs, pre, post, kind))
             torch.cuda.synchronize()
-            checks.append({"shape": [k, b, 128], "kind": kind, **err})
+            checks.append({"shape": [k, b, d], "kind": kind, **err})
             check(err["max_abs_err"] <= kb.TOLERANCE["fused_intersection"],
-                  f"fused_intersection differs from plain at {[k, b, 128]} {kind}")
+                  f"fused_intersection differs from plain at {[k, b, d]} {kind}")
 
     K.reset_launch_counts()
     benches = {}
-    for fn in (kb.bench_gather, kb.bench_sddmm, kb.bench_intersection):
+    for fn in (kb.bench_gather, kb.bench_sddmm):
         r = fn()
         torch.cuda.synchronize()
         check(r["ok"], f"{r['kernel']} differs from plain: {r}")
@@ -374,8 +384,15 @@ def phase_kernel_bench(dev):
     launches = dict(K.LAUNCHES)
     for name in ("gather_normalize", "sddmm_scores"):
         check(launches[name] > 0, f"the bench launched no {name}: {launches}")
+    inter = kb.bench_intersections()
+    for r in inter:
+        check(r["ok"], f"fused_intersection differs from plain: {r}")
     emit({"phase": "kernel_bench", "fused_intersection_checks": checks,
-          "benches": list(benches.values()), "launches": launches})
+          "benches": list(benches.values()), "intersection_benches": inter,
+          "launches": launches})
+    # the kernels line reports the intersection where eval launches it most
+    # ([3,1024,128], the 3i batches; min, the bench workload's intersection)
+    benches["fused_intersection"] = inter[0]
     return {"benches": benches, "launches": launches,
             "intersection_err": max(c["max_abs_err"] for c in checks)}
 
@@ -755,6 +772,7 @@ def phase_eval(trained, card: str):
 
     from graphqembed_tpu_torch.config import INTERSECT_STRUCTURES
     from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.models import gqe
     from graphqembed_tpu_torch.models.params import init_params, tree_map
     from graphqembed_tpu_torch.ops import kernels as K
     from graphqembed_tpu_torch.training import eval_apr, eval_auc
@@ -791,15 +809,31 @@ def phase_eval(trained, card: str):
     fast, fast_s = timed(lambda: run_all(cfg, params, val))
     pcfg = dataclasses.replace(cfg, use_pallas=True)
     # the main path of fused_intersection: counts from 0 around the three
-    # per-formula evals, one launch per intersection-formula batch
+    # per-formula evals, one launch per intersection-formula batch. Calls
+    # are also tallied by branch count k (3 for 3i, 2 for 2i/ip/pi) at the
+    # model's call site.
+    by_k = {}
+    real = gqe.fused_intersection
+
+    def tally(zs, *args, **kw):
+        by_k[zs.shape[0]] = by_k.get(zs.shape[0], 0) + 1
+        return real(zs, *args, **kw)
+
     K.reset_launch_counts()
-    formula, formula_s = timed(lambda: run_all(pcfg, params, val,
-                                               neighbor_tables=object()))
+    gqe.fused_intersection = tally
+    try:
+        formula, formula_s = timed(lambda: run_all(pcfg, params, val,
+                                                   neighbor_tables=object()))
+    finally:
+        gqe.fused_intersection = real
     launches = dict(K.LAUNCHES)
     want = 3 * _batch_count(val, INTERSECT_STRUCTURES, cfg.eval_batch_size)
     check(launches == {"gather_normalize": 0, "sddmm_scores": 0,
                        "fused_intersection": want},
           f"per-formula eval launches {launches}, want {want} intersections")
+    want_k = {3: 3 * _batch_count(val, ("3i",), cfg.eval_batch_size),
+              2: 3 * _batch_count(val, ("2i", "ip", "pi"), cfg.eval_batch_size)}
+    check(by_k == want_k, f"intersection calls by k {by_k}, want {want_k}")
     # hard AUC is left out, as in the JAX package's own check: the fast
     # route skips a query with no hard negative, the per-formula route
     # scores it against a plain negative
@@ -850,14 +884,16 @@ def phase_eval(trained, card: str):
           "n_formulas": n_formulas, "sample_s": sample_s,
           "fast": fast, "fast_s": fast_s, "per_formula": formula,
           "per_formula_s": formula_s, "fused_intersection_launches":
-              launches["fused_intersection"], "route_max_diff": route_diff,
+              launches["fused_intersection"],
+          "fused_intersection_launches_by_k": {str(k): v for k, v in by_k.items()},
+          "route_max_diff": route_diff,
           "cpu_max_diff": cpu_diff, "train_auc": train_auc,
           "untrained_train_auc": train_floor,
           "untrained_auc": floor, "heldout_2p3i_auc": held,
           "untrained_2p3i_auc": held_floor,
           "train_named_node_frac": len(named) / schema.n_nodes,
           "val_target_named_frac": val_target_named})
-    return launches
+    return {**launches, "fused_intersection_by_k": by_k}
 
 
 def profile_chunk(chunk, i0, ms_per_step):
@@ -947,17 +983,25 @@ def main(argv):
     for name, line in (("fused_intersection", 217), ("gather_normalize", 69),
                        ("sddmm_scores", 163)):
         r = kb["benches"][name]
-        err = r["max_abs_err"]
-        if name == "fused_intersection":
-            err = max(err, kb["intersection_err"])
-        kernels.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "graphqembed_tpu_torch/csrc/kernels.cu",
             "replaces": f"graphqembed_tpu/ops/kernels.py:{line}",
-            "launches": main_path[name], "max_abs_err": err,
+            "launches": main_path[name], "max_abs_err": r["max_abs_err"],
             "ms": r["us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
             "bound_ms": r["bound_us"] / 1e3, "bound_by": r["bound_by"],
-            "library_ms": None if r["library_us"] is None else r["library_us"] / 1e3})
+            "library_ms": None if r["library_us"] is None else r["library_us"] / 1e3}
+        if name == "fused_intersection":
+            # the kernel's own work is 3xTF32 on the tensor cores: its bound
+            # is the tensor-core one; the float32 CUDA-core bound beside it
+            row.update(
+                shape=[r["k"], r["B"], r["d"]],
+                max_abs_err=max(r["max_abs_err"], kb["intersection_err"]),
+                bound_ms=r["tc_bound_us"] / 1e3, bound_by=r["tc_bound_by"],
+                cuda_core_bound_ms=r["bound_us"] / 1e3,
+                launches_by_k={str(k): v for k, v in
+                               eval_launches["fused_intersection_by_k"].items()})
+        kernels.append(row)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,16 @@ bench's LCG chain (ids·1664525 + 1013904223 mod N, in int32). Each returns
 microseconds per call of kernel, plain version and library call, the bytes
 and operations the function needs (each input read once, each output
 written once), and the bound: the larger of bytes over 3.35 TB/s and
-operations over 67 TFLOP/s float32, an H100 SXM at its 700 W limit.
+operations over 67 TFLOP/s float32, an H100 SXM at its 700 W limit. The
+intersection also gets `tc_bound_us`, its bound on the tensor cores at
+float32 accuracy: 3xTF32 does three TF32 products for each float32 one, so
+three times its operations over 495 TFLOP/s TF32, or the bytes where larger.
+The intersection runs at eval's shapes, [3,1024,128] (3i) and [2,1024,128]
+(2i, ip, pi: every formula batch is padded to eval_batch_size = 1024 rows),
+and at the JAX bench's [3,4096,128], each with min and mean.
+
+    python -m graphqembed_tpu_torch.experiments.kernel_bench intersection
+                                # the intersection benches alone
 
 This module is the only caller of `gather_normalize` and `sddmm_scores`,
 as the JAX bench is in the JAX package.
@@ -26,6 +35,7 @@ from __future__ import annotations
 
 import json
 import statistics
+import sys
 
 import numpy as np
 import torch
@@ -35,6 +45,12 @@ from graphqembed_tpu_torch.ops import kernels as K
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 on the tensor cores, dense
+TF32_PASSES = 3                # 3xTF32: hi*hi + hi*lo + lo*hi
+
+# (k, B, d) of the intersection bench: eval's 3i and 2i/ip/pi batches
+# first, then the JAX bench's shape.
+INTERSECTION_SHAPES = ((3, 1024, 128), (2, 1024, 128), (3, 4096, 128))
 
 # Kernel vs plain version, largest absolute difference allowed. Both compute
 # in float32 and differ only in the order of their sums (and, for sddmm, in
@@ -53,6 +69,13 @@ TOLERANCE = {"gather_normalize": 1e-5, "sddmm_scores": 1e-4,
 def bound_us(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e6
     t_ops = n_ops / FP32_OPS_PER_S * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tc_bound_us(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """The bound of a float32 product done as 3xTF32 on the tensor cores."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e6
+    t_ops = TF32_PASSES * n_ops / TF32_OPS_PER_S * 1e6
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -124,21 +147,24 @@ def kernel_events(prof) -> list[tuple[float, str, int]]:
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
 
 
-def device_us(fn, reps: int = 20) -> float:
+def device_us(fn, reps: int = 20, attempts: int = 3) -> float:
     """Device microseconds per call fn(i): the summed duration of the GPU
-    kernels it launches (torch.profiler), whatever the host's launch time."""
+    kernels it launches (torch.profiler), whatever the host's launch time.
+    A profile that saw no device time (CUPTI now and then records none) is
+    taken again, up to `attempts` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(reps):
-            fn(i)
-        torch.cuda.synchronize()
-    total = sum(us for us, _, _ in kernel_events(prof))
-    if total <= 0:
-        raise RuntimeError("the profiler saw no device time")
-    return total / reps
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(reps):
+                fn(i)
+            torch.cuda.synchronize()
+        total = sum(us for us, _, _ in kernel_events(prof))
+        if total > 0:
+            return total / reps
+    raise RuntimeError("the profiler saw no device time")
 
 
 def _times(kernel, plain, library=None) -> dict:
@@ -213,19 +239,31 @@ def bench_intersection(b: int = 4096, d: int = 128, k: int = 3,
     err = errors(K.fused_intersection(zs, pre, post, kind),
                  K.fused_intersection_plain(zs, pre, post, kind))
     torch.cuda.synchronize()
-    return _result(
+    cost = intersection_cost(k, b, d)
+    out = _result(
         "fused_intersection", {"k": k, "B": b, "d": d, "kind": kind}, err,
         _times(lambda i: K.fused_intersection(zs, pre, post, kind),
                lambda i: K.fused_intersection_plain(zs, pre, post, kind)),
-        None, intersection_cost(k, b, d))
+        None, cost)
+    out["tc_bound_us"], out["tc_bound_by"] = tc_bound_us(*cost)
+    return out
 
 
-def main():
+def bench_intersections(device=None) -> list[dict]:
+    """bench_intersection at every INTERSECTION_SHAPES entry, min and mean."""
+    return [bench_intersection(b, d, k, kind, device)
+            for k, b, d in INTERSECTION_SHAPES for kind in ("min", "mean")]
+
+
+def main(argv=()):
     torch.backends.cuda.matmul.allow_tf32 = False
     print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
-    for fn in (bench_gather, bench_sddmm, bench_intersection):
-        print(json.dumps(fn()), flush=True)
+    if "intersection" not in argv:
+        for fn in (bench_gather, bench_sddmm):
+            print(json.dumps(fn()), flush=True)
+    for r in bench_intersections():
+        print(json.dumps(r), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -12,9 +12,11 @@ CUDA kernels for Hopper (csrc/kernels.cu) and their plain PyTorch versions.
 - `fused_intersection(zs, pre, post, kind)`: relu(z_i @ pre) for each branch
   of zs [k, B, d], min (or mean) over k, then @ post, in one call. Kernel
   `gqe_fused_intersection_f32`, in place of the Pallas `fused_intersection`.
-  Bound by float32 operations, 2·B·d²·(k+1). Forward only: the JAX package
-  has no gradient for it either, so the wrapper refuses a call that would
-  need one instead of silently dropping it.
+  2·B·d²·(k+1) operations, run on the tensor cores as 3xTF32 (float32
+  accuracy); a cluster of two CTAs per 16 rows, each CTA half the columns
+  (`intersection_launch`). Forward only: the JAX package has no gradient
+  for it either, so the wrapper refuses a call that would need one instead
+  of silently dropping it.
 
 The kernels take float32 data, int32 ids (as the JAX kernels do), contiguous
 tensors and d % 4 == 0. A wrapper runs the plain version only for tensors on
@@ -37,7 +39,9 @@ LAUNCHES = {"gather_normalize": 0, "sddmm_scores": 0, "fused_intersection": 0}
 
 # Shared memory a block can use on Hopper (bytes).
 MAX_SMEM = 232_448
-_TILE_ROWS = 32  # kTileRows of csrc/kernels.cu
+# fused_intersection's launch constants, as in csrc/kernels.cu
+_TILE_ROWS = 16  # kTileRows: rows per cluster (the mma's M)
+_CLUSTER = 2     # kCluster: CTAs per cluster, each owning half the columns
 
 
 def reset_launch_counts() -> None:
@@ -150,10 +154,28 @@ def sddmm_scores(q: torch.Tensor, table: torch.Tensor,
     return out
 
 
-def intersection_smem_bytes(d: int) -> int:
-    """Dynamic shared memory of the intersection kernel at width d: the
-    [d, d] operator and two [32, d] tiles, float32."""
-    return (d * d + 2 * _TILE_ROWS * d) * 4
+def intersection_launch(b: int, d: int) -> dict:
+    """The intersection kernel's launch at B rows and width d, as
+    csrc/kernels.cu computes it. A cluster of two CTAs per 16 rows, each CTA
+    half the columns. For d <= 128 a warp owns two 8-column tiles and half
+    the k steps (its split columns of pre and post fit in registers), above
+    one tile and all k steps; either way 2·dp threads, dp being d padded to
+    32 (to 16 above 128). Shared memory, float32: pre's column slice [dp,
+    dp/2 + 8] (later the split rows of z and agg, 32 floats per padded
+    column, where larger), post's slice, two z tiles [16, dp + 4] (the
+    first later agg) and the partial products of the second k half, 8·dp.
+    Raises ValueError for a d whose shared memory does not fit (d > 208)."""
+    nt = ks = 2 if d <= 128 else 1
+    dp = -(-d // (16 * nt)) * 16 * nt
+    slice_floats = dp * (dp // 2 + 8)
+    smem = (max(slice_floats, 32 * dp) + slice_floats
+            + 2 * _TILE_ROWS * (dp + 4) + (ks - 1) * 8 * dp) * 4
+    if smem > MAX_SMEM:
+        raise ValueError(f"fused_intersection: d={d} needs {smem} B of "
+                         f"shared memory, above {MAX_SMEM}")
+    return {"rows_per_tile": _TILE_ROWS, "cluster": _CLUSTER,
+            "ctas": _CLUSTER * -(-b // _TILE_ROWS), "threads": 2 * dp,
+            "columns_per_warp": 8 * nt, "k_splits": ks, "smem_bytes": smem}
 
 
 def fused_intersection(zs: torch.Tensor, pre: torch.Tensor, post: torch.Tensor,
@@ -174,9 +196,7 @@ def fused_intersection(zs: torch.Tensor, pre: torch.Tensor, post: torch.Tensor,
         return fused_intersection_plain(zs, pre, post, kind)
     _check_kernel_inputs("fused_intersection", (zs, pre, post))
     k, b, d = zs.shape
-    if intersection_smem_bytes(d) > MAX_SMEM:
-        raise ValueError(f"fused_intersection: d={d} needs "
-                         f"{intersection_smem_bytes(d)} B of shared memory")
+    intersection_launch(b, d)  # raises for a d the kernel does not take
     out = torch.empty((b, d), dtype=torch.float32, device=zs.device)
     cuda_build.launch(LAUNCHES, "fused_intersection",
                       _lib().gqe_fused_intersection_f32, zs.data_ptr(),
