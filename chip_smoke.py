@@ -56,6 +56,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              formula batch); the same eval with the parameters on the CPU;
              training-set AUC against untrained parameters; held-out AUC
              against untrained parameters (reported)
+  protocol   the full training protocol through the port's CLIs
+             (gqe-torch-train / gqe-torch-eval) on the bio-latent graph
+             (1,760 nodes; 4,000 train + 1,000 val queries per structure,
+             written to a temporary --data_dir by the port's loader):
+             the headline run (--pipeline device --bf16, d=128, B=512,
+             bilinear/min, 12,000 steps with 3,000 of burn-in, evals every
+             3,000, checkpoints every 3,000) with exact Adam launches and
+             falling losses; its val macro AUC and APR against the JAX CPU
+             reference; SIGKILL after the first checkpoint and --resume,
+             bit for bit against an uninterrupted run (deterministic
+             algorithms; 2,000 steps); --pipeline host (float32, 3,000
+             steps) against its JAX CPU reference; gqe-torch-eval against
+             metrics.json (1e-6)
 Then the card's name and power limit, the {"kernels": [...]} line, and the
 last line {"ok": true, "device": {...}}.
 """
@@ -896,6 +909,321 @@ def phase_eval(trained, card: str):
     return {**launches, "fused_intersection_by_k": by_k}
 
 
+# ---------- phase protocol: gqe-torch-train / gqe-torch-eval on the card ----------
+
+# The protocol cell: the bio-latent quality family (RESULTS_oracle_parity_latent.md:
+# 1,760 nodes, 12,000 steps with 3,000 of burn-in, lr 0.03, bilinear/min, d=128,
+# B=512), cut from 8,000 to 4,000 training queries per structure to keep the
+# sampling (the port's sampler is Python) short; 1,000 val queries per structure.
+PROTOCOL_N_TRAIN, PROTOCOL_N_VAL = 4000, 1000
+# --tol=-1e9 turns convergence stopping off (a window's mean loss would have
+# to grow a billionfold), so every run takes its whole budget: with the
+# default tol the windowed check fires on noise soon after burn-in (the mixed,
+# weighted multitask losses), at a step that differs between runs.
+PROTOCOL_FLAGS = ["--pipeline", "device", "--bf16", "--lr", "0.03",
+                  "--tol=-1e9", "--seed", "0"]
+HOST_FLAGS = ["--pipeline", "host", "--lr", "0.03", "--tol=-1e9", "--seed", "0"]
+HEADLINE = {"max_iter": 12000, "max_burn_in": 3000, "val_every": 3000,
+            "ckpt_every": 3000}
+# the kill/resume runs are cut from 3,000 to 2,000 steps to keep the phase
+# near four minutes (two subprocesses and an uninterrupted run)
+RESUME = {"max_iter": 2000, "max_burn_in": 600, "val_every": 1000,
+          "ckpt_every": 500}
+HOST = {"max_iter": 3000, "max_burn_in": 1000, "val_every": 1000}
+
+
+def cli_flags(flags, budget):
+    return flags + [f"--{k}={v}" for k, v in budget.items()]
+
+
+# JAX CPU quality references: the JAX package's CLI on a CPU, on the data
+# directory write_protocol_data writes (the JAX package's own generator,
+# sampler and loader write the same files, tests/test_torch_data.py):
+#   JAX_PLATFORMS=cpu python -m graphqembed_tpu.cli.train --data_dir D \
+#     --model_dir M <cli_flags(PROTOCOL_FLAGS, HEADLINE) or
+#     cli_flags(HOST_FLAGS, HOST)>
+# (metrics.json, final_auc / final_apr macro).
+JAX_CPU_HEADLINE = {"auc": 0.6993628477809526, "apr": 0.6970255957608842}
+JAX_CPU_HOST = {"auc": 0.709130313483861}
+QUALITY_TOL = 0.03
+# The kill/resume check runs with torch.use_deterministic_algorithms(True):
+# take_rows' backward is index_add_, whose float atomics reorder sums on the
+# card; in deterministic mode PyTorch runs its sorted deterministic version,
+# and cuBLAS needs CUBLAS_WORKSPACE_CONFIG (set in main). Resume is then
+# compared bit for bit.
+DETERMINISTIC_MAIN = ("import sys, torch; torch.use_deterministic_algorithms(True); "
+                      "from graphqembed_tpu_torch.cli.train import main; "
+                      "sys.exit(main(sys.argv[1:]))")
+
+
+def write_protocol_data(path):
+    """The protocol's graph and queries through the port's generator, sampler
+    and loader: the order of cli/train.py's load_dataset."""
+    import numpy as np
+
+    from graphqembed_tpu_torch.config import STRUCTURES
+    from graphqembed_tpu_torch.data.loader import export_reference_pickle, save_queries
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph_latent
+
+    graph = synthetic_graph_latent(seed=0, scale=2.0, avg_degree=8.0)
+    check(graph.schema.n_nodes == 1760, f"{graph.schema.n_nodes} nodes, want 1760")
+    sampler = QuerySampler(graph, np.random.default_rng(0), max_negs=50)
+    train, val = [], []
+    for st in STRUCTURES:
+        qs = sampler.sample_many(st, PROTOCOL_N_TRAIN + PROTOCOL_N_VAL)
+        train += qs[:PROTOCOL_N_TRAIN]
+        val += qs[PROTOCOL_N_TRAIN:]
+    path.mkdir(parents=True)
+    export_reference_pickle(graph, path / "graph_data.pkl")
+    save_queries(path / "train_queries", graph.schema, train)
+    save_queries(path / "val_queries", graph.schema, val)
+    return {"nodes": graph.schema.n_nodes, "edges": graph.num_edges(),
+            "n_train": len(train), "n_val": len(val)}
+
+
+def run_cli(main_fn, argv, module=None, name=None):
+    """main_fn(argv) in this process with its stdout kept, returning (rc,
+    stdout, results): `results` are the return values of module.name (a
+    driver the CLI calls), recorded while the CLI runs."""
+    import contextlib
+    import io
+
+    results = []
+    real = getattr(module, name) if module is not None else None
+    if module is not None:
+        setattr(module, name, lambda *a, **kw: results.append(real(*a, **kw))
+                or results[-1])
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+    finally:
+        if module is not None:
+            setattr(module, name, real)
+    return rc, out.getvalue(), results
+
+
+def fell(series, k=3) -> bool:
+    """Mean of the last k values below the mean of the first k."""
+    import numpy as np
+    return len(series) >= 2 * k and float(np.mean(series[-k:])) < float(
+        np.mean(series[:k]))
+
+
+def eval_boundaries(total, burn, val_every, n_struct, steps_per):
+    """The steps at which run_train_device_mega evaluates (burn-in as one
+    segment, then segments of val_every rounded to whole rounds)."""
+    done, out = burn, []
+    every = max(1, min(val_every, total - done))
+    while done < total:
+        seg = min(every, total - done)
+        done += max(1, round(seg / (n_struct * steps_per))) * n_struct * steps_per
+        out.append(done)
+    return out
+
+
+def load_params(path):
+    import torch
+    return torch.load(path / "state.pt", weights_only=True, map_location="cpu")["params"]
+
+
+def phase_protocol(card: str):
+    """The training protocol through the port's CLIs on the card at full
+    width (d=128, B=512, bilinear/min, bf16): the headline run with its
+    launches, quality against the JAX CPU reference, SIGKILL and --resume,
+    the host pipeline, and gqe-torch-eval against metrics.json."""
+    import math
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch import training
+    from graphqembed_tpu_torch.cli import evaluate
+    from graphqembed_tpu_torch.cli import train as cli
+    from graphqembed_tpu_torch.models.params import tree_paths
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.ops import kernels as K
+    from graphqembed_tpu_torch.training import device_data as dd
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        data = tmp / "data"
+        t0 = time.perf_counter()
+        info = write_protocol_data(data)
+        emit({"phase": "protocol", "step": "data", **info,
+              "seconds": time.perf_counter() - t0})
+        base = ["--data_dir", str(data)]
+
+        # 2. the headline run: counts from 0 around it
+        head = tmp / "head"
+        fa.reset_launch_counts()
+        K.reset_launch_counts()
+        w0 = time.perf_counter()
+        rc, _, res = run_cli(
+            cli.main, base + cli_flags(PROTOCOL_FLAGS, HEADLINE)
+            + ["--model_dir", str(head)], dd, "run_train_device_mega")
+        wall = time.perf_counter() - w0
+        launches = {**fa.LAUNCHES, **K.LAUNCHES}
+        check(rc == 0 and len(res) == 1, f"headline run: rc {rc}")
+        res = res[0]
+        metrics = json.loads((head / "metrics.json").read_text())
+        steps = metrics["steps"]
+        batch = json.loads((head / "config.json").read_text())["batch_size"]
+        check(steps >= HEADLINE["max_iter"], f"headline run took {steps} steps")
+        want = {"fused_adam_leaf": 3 * steps, "fused_adam_leaf_sr": steps,
+                "fused_adam_table_sorted_rows_sr": 0, "fused_intersection": 0,
+                "gather_normalize": 0, "sddmm_scores": 0}
+        check(launches == want, f"headline launches {launches}, want {want}")
+        best = load_params(head / "best")
+        check(all(bool(torch.isfinite(v.float()).all()) for _, v in tree_paths(best)),
+              "best parameters not finite")
+        check(all(bool(torch.isfinite(v.float()).all()) for _, v in tree_paths(res.params)),
+              "final parameters not finite")
+        steps_per = cli.dispatch_steps_per(HEADLINE["max_iter"])
+        burn = res.losses["1p"][:res.burn_in_steps // steps_per]
+        n_struct = len(res.losses)
+        # each structure that first trains in the multitask phase: its
+        # (weighted) round losses fall. The 1p loss, which dominates the
+        # mean, first rises there as the other structures move the table.
+        multi = {s: v for s, v in res.losses.items() if s != "1p"}
+        check(all(np.isfinite(burn)) and fell(burn), f"burn-in loss did not fall: {burn}")
+        for s, v in multi.items():
+            check(all(np.isfinite(v)) and fell(v), f"multitask {s} loss did not fall: {v}")
+        bounds = eval_boundaries(HEADLINE["max_iter"], res.burn_in_steps,
+                                 HEADLINE["val_every"], n_struct, steps_per)
+        check([s for s, _ in res.val_history] == bounds,
+              f"val_history {res.val_history}, eval boundaries {bounds}")
+        kept = sorted(d.name for d in (head / "ckpts").glob("step_*"))
+        check(0 < len(kept) <= 3, f"checkpoints kept: {kept}")
+        t = metrics["timings"]
+        out["headline"] = {
+            "steps": steps, "burn_in_steps": metrics["burn_in_steps"],
+            "ms_per_step": 1e3 * t["train_s"] / t["session_steps"],
+            "train_qps": metrics["queries_per_sec"], "timings": t,
+            "wall_s": wall, "launches": launches, "val_history": res.val_history,
+            "checkpoints_kept": kept, "loss_burn_first_last": [burn[0], burn[-1]],
+            "loss_multi_first_last": {s: [v[0], v[-1]] for s, v in multi.items()},
+            "auc": metrics["final_auc"], "auc_hard": metrics["final_auc_hard"],
+            "apr": metrics["final_apr"], "card": card}
+        emit({"phase": "protocol", "step": "headline", **out["headline"]})
+
+        # 3. quality against the JAX CPU reference on the same data and flags
+        q = {"auc": metrics["final_auc"]["macro"], "apr": metrics["final_apr"]["macro"]}
+        for m, v in q.items():
+            check(v >= JAX_CPU_HEADLINE[m] - QUALITY_TOL,
+                  f"val macro {m} {v} below the JAX CPU reference "
+                  f"{JAX_CPU_HEADLINE[m]} - {QUALITY_TOL}")
+        emit({"phase": "protocol", "step": "quality", "card": q,
+              "jax_cpu": JAX_CPU_HEADLINE, "tolerance": QUALITY_TOL})
+
+        # 4. SIGKILL once a checkpoint exists, then --resume; against an
+        # uninterrupted run, all in deterministic mode
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+        killed_dir = tmp / "killed"
+        resume_flags = base + cli_flags(PROTOCOL_FLAGS, RESUME)
+        cmd = [sys.executable, "-c", DETERMINISTIC_MAIN, *resume_flags,
+               "--model_dir", str(killed_dir)]
+        with open(tmp / "killed.log", "w") as log:
+            proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                    stderr=log)
+            try:
+                deadline = time.time() + 300
+                while time.time() < deadline and proc.poll() is None:
+                    if any((killed_dir / "ckpts").glob("step_*/meta.json")):
+                        proc.send_signal(signal.SIGKILL)
+                        break
+                    time.sleep(0.05)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                proc.wait(timeout=60)
+        check(proc.returncode == -signal.SIGKILL,
+              f"the run to kill ended with rc {proc.returncode}: "
+              f"{(tmp / 'killed.log').read_text()[-2000:]}")
+        restored = max(int(d.name[5:]) for d in (killed_dir / "ckpts").glob("step_*")
+                       if (d / "meta.json").exists())
+        r = subprocess.run([*cmd, "--resume"], env=env, capture_output=True,
+                           text=True, timeout=600)
+        check(r.returncode == 0, f"resumed run rc {r.returncode}: {r.stderr[-2000:]}")
+        resumed = json.loads((killed_dir / "metrics.json").read_text())
+        torch.use_deterministic_algorithms(True)
+        try:
+            whole = tmp / "whole"
+            rc, _, _ = run_cli(cli.main, resume_flags + ["--model_dir", str(whole)])
+        finally:
+            torch.use_deterministic_algorithms(False)
+        check(rc == 0, f"uninterrupted run rc {rc}")
+        uninterrupted = json.loads((whole / "metrics.json").read_text())
+        rt = resumed["timings"]
+        check(resumed["steps"] >= RESUME["max_iter"]
+              and resumed["steps"] == uninterrupted["steps"],
+              f"steps {resumed['steps']} resumed, {uninterrupted['steps']} whole")
+        check(rt["session_steps"] == resumed["steps"] - restored,
+              f"resumed session counted {rt['session_steps']} steps, "
+              f"restored at {restored} of {resumed['steps']}")
+        check(math.isclose(resumed["queries_per_sec"],
+                           rt["session_steps"] * batch / rt["train_s"], rel_tol=1e-9),
+              f"resumed q/s {resumed['queries_per_sec']}")
+        last = f"step_{resumed['steps']:08d}"
+        pa, pb = load_params(killed_dir / "ckpts" / last), load_params(whole / "ckpts" / last)
+        same = {p: bool(torch.equal(a, b)) for (p, a), (_, b) in
+                zip(tree_paths(pa), tree_paths(pb))}
+        check(all(same.values()), f"resumed final parameters differ: {same}")
+        check(resumed["final_auc"] == uninterrupted["final_auc"]
+              and resumed["best_val_auc"] == uninterrupted["best_val_auc"],
+              "resumed and uninterrupted val AUC differ")
+        out["resume"] = {"restored_step": restored, "steps": resumed["steps"],
+                         "session_steps": rt["session_steps"],
+                         "session_train_s": rt["train_s"],
+                         "queries_per_sec": resumed["queries_per_sec"],
+                         "params_bit_identical": True,
+                         "val_macro_auc": resumed["final_auc"]["macro"]}
+        emit({"phase": "protocol", "step": "resume", **out["resume"]})
+
+        # 5. the host pipeline: the reference schedule, float32
+        host = tmp / "host"
+        fa.reset_launch_counts()
+        rc, _, hres = run_cli(cli.main, base + cli_flags(HOST_FLAGS, HOST)
+                              + ["--model_dir", str(host)], training, "run_train")
+        check(rc == 0 and len(hres) == 1, f"host run rc {rc}")
+        hm = json.loads((host / "metrics.json").read_text())
+        hres = hres[0]
+        check(hm["steps"] == HOST["max_iter"], f"host run took {hm['steps']} steps")
+        check(dict(fa.LAUNCHES) == {"fused_adam_leaf": 4 * hm["steps"],
+                                    "fused_adam_leaf_sr": 0,
+                                    "fused_adam_table_sorted_rows_sr": 0},
+              f"host launches {fa.LAUNCHES}")
+        hloss = hres.losses["1p"][:hres.burn_in_steps]
+        check(all(np.isfinite(v) for vs in hres.losses.values() for v in vs)
+              and fell(hloss, 100), "host loss not finite or not falling")
+        hq = {m: hm[k]["macro"] for m, k in (("auc", "final_auc"), ("apr", "final_apr"))}
+        check(all(np.isfinite(list(hq.values()))), f"host metrics {hq}")
+        check(hq["auc"] >= JAX_CPU_HOST["auc"] - QUALITY_TOL,
+              f"host val macro AUC {hq['auc']} below the JAX CPU reference "
+              f"{JAX_CPU_HOST['auc']} - {QUALITY_TOL}")
+        out["host"] = {"steps": hm["steps"], "queries_per_sec": hm["queries_per_sec"],
+                       "auc": hm["final_auc"], "apr": hm["final_apr"],
+                       "jax_cpu_auc": JAX_CPU_HOST["auc"]}
+        emit({"phase": "protocol", "step": "host", **out["host"]})
+
+        # 6. gqe-torch-eval reproduces metrics.json
+        rc, text, _ = run_cli(evaluate.main, ["--model_dir", str(head), "--data_dir",
+                                              str(data), "--split", "val_queries"])
+        check(rc == 0, f"gqe-torch-eval rc {rc}")
+        ev = json.loads(text)
+        diff = max(abs(ev[a][k] - metrics[b][k])
+                   for a, b in (("auc", "final_auc"), ("auc_hard", "final_auc_hard"),
+                                ("apr", "final_apr")) for k in metrics[b])
+        check(diff <= 1e-6, f"gqe-torch-eval differs from metrics.json by {diff}")
+        emit({"phase": "protocol", "step": "eval_cli", "max_diff": diff})
+    return out
+
+
 def profile_chunk(chunk, i0, ms_per_step):
     """Device time by kernel over one 2p and one 3i chunk, and the device's
     idle share against the unprofiled step time."""
@@ -918,6 +1246,9 @@ def profile_chunk(chunk, i0, ms_per_step):
 
 
 def main(argv):
+    # cuBLAS is deterministic under torch.use_deterministic_algorithms only
+    # with a fixed workspace; set before the first product (phase protocol)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -943,6 +1274,7 @@ def main(argv):
     phase_train_sparse(dev, card, work)
     phase_multitask(dev, card, work)
     eval_launches = phase_eval(trained, card)
+    protocol = phase_protocol(card)
 
     print(card, flush=True)
 
@@ -966,6 +1298,9 @@ def main(argv):
          "bound_ms": sr_t["bound_ms"], "bound_by": sr_t["bound_by"],
          "library_ms": sr_t["library_ms"]},
     ]
+    # the protocol phase's headline run is a main path of both Adam kernels
+    for row in kernels:
+        row["launches_protocol"] = protocol["headline"]["launches"][row["name"]]
     rows_k = kern["fused_adam_table_sorted_rows_sr"]
     rows_t = rows_k["timing"]["bench_3i_batch"]
     kernels.append(

@@ -36,6 +36,13 @@ STRUCT_SHAPE: dict[str, tuple[int, int]] = {
     "ip": (2, 3),
 }
 
+# modern structure name -> the reference release's query_type string
+REFERENCE_NAMES = {
+    "1p": "1-chain", "2p": "2-chain", "3p": "3-chain",
+    "2i": "2-inter", "3i": "3-inter", "pi": "3-inter_chain", "ip": "3-chain_inter",
+}
+MODERN_NAMES = {v: k for k, v in REFERENCE_NAMES.items()}
+
 
 def check_formula_relations(structure: str, rels: tuple[Relation, ...]) -> None:
     """Validate mode-compatibility of a relation tuple for a structure."""
@@ -108,6 +115,10 @@ class Formula:
     def serialize(self) -> tuple:
         return (self.structure, self.rels)
 
+    @classmethod
+    def deserialize(cls, t: tuple) -> "Formula":
+        return cls(t[0], tuple(tuple(r) for r in t[1]))
+
 
 @dataclasses.dataclass
 class Query:
@@ -120,6 +131,28 @@ class Query:
     target: int
     neg_samples: np.ndarray
     hard_neg_samples: np.ndarray | None = None
+
+    def serialize(self) -> tuple:
+        return (
+            self.formula.serialize(),
+            self.anchors,
+            self.target,
+            tuple(int(x) for x in self.neg_samples),
+            None
+            if self.hard_neg_samples is None
+            else tuple(int(x) for x in self.hard_neg_samples),
+        )
+
+    @classmethod
+    def deserialize(cls, t: tuple) -> "Query":
+        f, anchors, target, negs, hard = t
+        return cls(
+            Formula.deserialize(f),
+            tuple(anchors),
+            target,
+            np.asarray(negs, dtype=np.int64),
+            None if hard is None else np.asarray(hard, dtype=np.int64),
+        )
 
     def dedup_key(self) -> tuple:
         return (self.formula.serialize(), self.anchors, self.target)

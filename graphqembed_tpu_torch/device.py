@@ -15,3 +15,10 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+def check_placed(dev: torch.device, what: str, t: torch.Tensor) -> None:
+    """Raise unless tensor `t` lives on the run's device `dev`."""
+    if t.device.type != dev.type or (dev.index is not None
+                                     and t.device.index != dev.index):
+        raise ValueError(f"{what} is on {t.device}; the run's device is {dev}")

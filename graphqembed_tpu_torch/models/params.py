@@ -48,6 +48,12 @@ def tree_map(fn, tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def tree_clone(tree: dict) -> dict:
+    """A detached copy of every leaf: the train steps update parameters in
+    place, so a kept snapshot (the best parameters) must be a copy."""
+    return tree_map(lambda x: x.detach().clone(), tree)
+
+
 def init_params(cfg: GQEConfig, schema: Schema,
                 generator: torch.Generator | None = None,
                 device=None) -> dict:

@@ -18,8 +18,13 @@ between them.
   once up front (`_augment_rows_fast`);
 - `make_scan_train_step_sparse`: the table under lazy sparse Adam
   (training/sparse_adam.py), O(touched rows) per step;
-- multitask: `make_multitask_mega_step` (rounds over the structures) and
-  `run_train_device` (burn-in on 1p, then weighted round-robin);
+- multitask: `make_multitask_mega_step` (rounds over the structures),
+  `run_train_device` (burn-in on 1p, then weighted round-robin) and the
+  production driver `run_train_device_mega` (the full protocol: chunked
+  burn-in with convergence stopping, multitask rounds with eval, the best
+  parameters, checkpoint and resume at dispatch boundaries);
+- optimizers: `FusedAdamOpt` (the CUDA fused-Adam kernels) and `SGDOpt`
+  (float32 storage only), one init/apply interface;
 - the Adam step count is a Python int and the losses stay on the device,
   so the loop never waits for the card.
 """
@@ -35,12 +40,23 @@ from graphqembed_tpu_torch.config import (
     GQEConfig,
 )
 from graphqembed_tpu_torch.data.queries import Query
-from graphqembed_tpu_torch.device import resolve_device
+from graphqembed_tpu_torch.device import check_placed, resolve_device
 from graphqembed_tpu_torch.graph.schema import Schema
 from graphqembed_tpu_torch.models import gqe
-from graphqembed_tpu_torch.models.params import tree_leaves, tree_map
+from graphqembed_tpu_torch.models.params import (
+    tree_clone,
+    tree_leaves,
+    tree_map,
+    tree_paths,
+)
 from graphqembed_tpu_torch.ops.fused_adam import fused_adam_tree, presort_row_ids
-from graphqembed_tpu_torch.training.loop import structure_weight
+from graphqembed_tpu_torch.training.eval import eval_auc
+from graphqembed_tpu_torch.training.loop import (
+    TrainResult,
+    check_conv,
+    resolve_queries,
+    structure_weight,
+)
 from graphqembed_tpu_torch.training.sparse_adam import lazy_adam_update
 
 POOL_FIELDS = ("anchors", "rels", "inter_modes", "targets", "negs",
@@ -212,6 +228,28 @@ class FusedAdamOpt:
         return params, (mu, nu, count)
 
 
+class SGDOpt:
+    """Plain SGD, p ← p − lr·g on every leaf in place (optax.sgd's update),
+    with FusedAdamOpt's init/apply interface. Float32 storage only: a
+    bfloat16 table would round every small step away. State = count, a
+    Python int. lr: float or schedule fn(count) -> float."""
+
+    def __init__(self, lr):
+        self.lr = lr
+
+    def init(self, params: dict):
+        return 0
+
+    def apply(self, params: dict, grads: dict, state):
+        count = state + 1
+        lr = self.lr(count) if callable(self.lr) else float(self.lr)
+        g_leaves = dict(tree_paths(grads))
+        with torch.no_grad():
+            for path, p in tree_paths(params):
+                p.sub_(lr * g_leaves[path])
+        return params, count
+
+
 def _grads_tree(params: dict, grads: list) -> dict:
     it = iter(grads)
 
@@ -313,11 +351,17 @@ def _scan(body, carry, batch_xs: dict):
 
 
 def _check_storage_optimizer(cfg: GQEConfig, optimizer):
-    """bfloat16 storage is only sound under stochastic-rounding writes."""
-    if not isinstance(optimizer, FusedAdamOpt):
+    """The port's steps take FusedAdamOpt or SGDOpt; bfloat16 storage is
+    only sound under stochastic-rounding writes (FusedAdamOpt)."""
+    if not isinstance(optimizer, (FusedAdamOpt, SGDOpt)):
         raise ValueError(
-            "the port's train step takes the stochastic-rounding optimizer "
-            f"(FusedAdamOpt); got {type(optimizer).__name__}")
+            "the port's train step takes FusedAdamOpt (or SGDOpt under "
+            f"float32 storage); got {type(optimizer).__name__}")
+    if cfg.storage_dtype != "float32" and not isinstance(optimizer,
+                                                         FusedAdamOpt):
+        raise ValueError(
+            "storage_dtype=bfloat16 requires the stochastic-rounding "
+            f"optimizer (FusedAdamOpt); got {type(optimizer).__name__}")
     if cfg.depth != 0:
         raise NotImplementedError(
             "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 "
@@ -330,7 +374,7 @@ def default_optimizer(cfg: GQEConfig, lr=None) -> FusedAdamOpt:
     return FusedAdamOpt(cfg.lr if lr is None else lr)
 
 
-def make_scan_train_step(cfg: GQEConfig, optimizer: FusedAdamOpt):
+def make_scan_train_step(cfg: GQEConfig, optimizer):
     """Returns run(params, opt_state, pool, structure, generator, n_steps,
     weight, use_hard) -> (params, opt_state, mean_loss): n_steps training
     steps on batches drawn from `pool` with `generator`. use_hard draws the
@@ -354,7 +398,7 @@ def make_scan_train_step(cfg: GQEConfig, optimizer: FusedAdamOpt):
     return run
 
 
-def make_scan_train_step_sparse(cfg: GQEConfig, small_optimizer: FusedAdamOpt):
+def make_scan_train_step_sparse(cfg: GQEConfig, small_optimizer):
     """The lazy-sparse table variant of make_scan_train_step: the loss is
     built from GATHERED rows, so the table's gradients are [B·(A+2), d] row
     gradients (never densified), and lazy sparse Adam
@@ -397,7 +441,7 @@ def derived_generator(device, seed: int, *path: int) -> torch.Generator:
         (int(state[0]) << 31) ^ int(state[1]))
 
 
-def make_multitask_mega_step(cfg: GQEConfig, optimizer: FusedAdamOpt,
+def make_multitask_mega_step(cfg: GQEConfig, optimizer,
                              data: DeviceTrainData,
                              structures: list[str] | None = None,
                              neighbor_tables=None, mesh=None):
@@ -408,10 +452,12 @@ def make_multitask_mega_step(cfg: GQEConfig, optimizer: FusedAdamOpt,
     make_scan_train_step calls, which is the same computation.
 
     Batch draws: structure index si in round r uses
-    derived_generator(seed, r, si), as JAX's key is fold_in(fold_in(key, r),
-    si), so a call equals the same sequence of single-structure calls.
+    derived_generator(*key, r, si), as JAX's key is fold_in(fold_in(key, r),
+    si), so a call equals the same sequence of single-structure calls. key
+    is an int seed or a tuple of ints (the driver passes (seed, dispatch_i),
+    as JAX folds the dispatch index into its key).
 
-    Returns run(params, opt_state, seed, n_rounds, steps_per)
+    Returns run(params, opt_state, key, n_rounds, steps_per)
     -> (params, opt_state, losses [n_rounds, n_structures] on the device)."""
     if neighbor_tables is not None:
         raise NotImplementedError(
@@ -428,12 +474,13 @@ def make_multitask_mega_step(cfg: GQEConfig, optimizer: FusedAdamOpt,
     pools = [data.pools[s] for s in structures]
     scan = make_scan_train_step(cfg, optimizer)
 
-    def run(params, opt_state, seed: int, n_rounds: int, steps_per: int):
+    def run(params, opt_state, key, n_rounds: int, steps_per: int):
+        path = key if isinstance(key, tuple) else (key,)
         losses = []
         for r in range(n_rounds):
             row = []
             for si, s in enumerate(structures):
-                gen = derived_generator(pools[si].device, seed, r, si)
+                gen = derived_generator(pools[si].device, *path, r, si)
                 params, opt_state, ml = scan(params, opt_state, pools[si], s,
                                              gen, steps_per, weights[si],
                                              use_hards[si])
@@ -484,3 +531,191 @@ def run_train_device(cfg: GQEConfig, schema: Schema, params: dict,
                 log(done, s, mloss)
     losses = {s: [float(v) for v in vs] for s, vs in losses.items()}
     return params, opt_state, losses
+
+
+def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
+                          data: DeviceTrainData, val_queries=None,
+                          total_steps: int | None = None,
+                          burn_in_steps: int | None = None,
+                          steps_per: int = 100, seed: int | None = None,
+                          optimizer=None, log=None, neighbor_tables=None,
+                          ckpt_manager=None, ckpt_every: int = 0,
+                          resume: bool = False, deferred_pools=None,
+                          mesh=None, device=None) -> TrainResult:
+    """The production driver (`gqe-train --pipeline device`): burn-in on 1p,
+    then multitask rounds, each burn-in chunk and each inter-eval segment
+    one call of make_multitask_mega_step. Evaluates on val_queries every
+    ~cfg.val_every steps (rounded to dispatch boundaries) and keeps a copy
+    of the best parameters. Returns a training/loop.py::TrainResult.
+    params and data must live on `device` (None means the card).
+
+    - convergence stopping: check_conv over the per-round mean loss series,
+      the window rounded from cfg.conv_window steps to rounds (burn-in:
+      1p rounds of steps_per; multitask: rounds of n_struct·steps_per);
+    - checkpoint/resume: ckpt_manager + ckpt_every save (params, opt_state,
+      best_params) at the first dispatch boundary past each multiple, with
+      dispatch_i, best_macro, burn_in_steps and phase in meta.json. Dispatch
+      i draws its batches from derived_generator(seed, i, round, structure),
+      so a resumed run draws the batches of an uninterrupted one;
+    - deferred_pools: optional callable () -> dict[str, DevicePool], called
+      AFTER burn-in and merged into `data`, so the non-1p pools can be built
+      while burn-in trains;
+    - val_queries may be a callable too, resolved at the first eval;
+    - queries_per_sec counts this session's steps over this session's train
+      seconds; timings has the seconds per phase and session_steps."""
+    import time
+
+    if neighbor_tables is not None:
+        raise NotImplementedError(
+            "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 item 9)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
+            "parallel/)")
+    dev = resolve_device(device)
+    check_placed(dev, "params", params["table"])
+    for s, pool in data.pools.items():
+        check_placed(dev, f"the {s} pool", pool.anchors)
+    total_steps = total_steps if total_steps is not None else cfg.max_iter
+    burn_in_steps = (burn_in_steps if burn_in_steps is not None
+                     else min(cfg.max_burn_in, total_steps))
+    optimizer = optimizer or default_optimizer(cfg)
+    opt_state = optimizer.init(params)
+    seed = cfg.seed if seed is None else seed
+    mega_burn = (make_multitask_mega_step(cfg, optimizer, data, ["1p"])
+                 if "1p" in data.pools else None)
+    # mega_all is built AFTER burn-in (below): with deferred_pools, the
+    # non-1p pools may still be building while burn-in runs
+    losses: dict[str, list[float]] = {s: [] for s in data.structures}
+    burn_series: list[float] = []   # per-round 1p mean losses
+    multi_series: list[float] = []  # per-round mean multitask losses
+    val_history: list[tuple[int, float]] = []
+    # a COPY: the steps update params in place
+    best_macro = -1.0
+    best_params = tree_clone(params)
+    done = 0
+    dispatch_i = 0
+    actual_burn_in = 0
+    t_train = t_eval = t_ckpt = t_pool_wait = t_val_wait = 0.0
+    last_ckpt = 0
+
+    if resume and ckpt_manager is not None:
+        restored = ckpt_manager.restore_latest(device=dev)
+        if restored is not None:
+            state, meta = restored
+            params = state["params"]
+            opt_state = state["opt_state"]
+            best_params = state["best_params"]
+            done = last_ckpt = int(meta["step"])
+            dispatch_i = int(meta["dispatch_i"])
+            actual_burn_in = int(meta.get("burn_in_steps", 0))
+            best_macro = float(meta.get("best_macro", -1.0))
+    start_done = done
+
+    def dispatch(fn, rounds, structures):
+        nonlocal done, dispatch_i, t_train
+        t0 = time.time()
+        p, o, mloss = fn(params, opt_state, (seed, dispatch_i), rounds,
+                         steps_per)
+        ml = mloss.cpu().numpy()  # [rounds, n_structures]; waits for the card
+        t_train += time.time() - t0
+        dispatch_i += 1
+        done += rounds * len(structures) * steps_per
+        for si, s in enumerate(structures):
+            losses[s].extend(ml[:, si].tolist())
+        return p, o, ml
+
+    def maybe_ckpt(phase: str):
+        nonlocal last_ckpt, t_ckpt
+        if ckpt_manager is not None and ckpt_every and \
+                done - last_ckpt >= ckpt_every:
+            tc = time.time()
+            ckpt_manager.save_state(
+                done,
+                {"params": params, "opt_state": opt_state,
+                 "best_params": best_params},
+                extra={"dispatch_i": dispatch_i, "best_macro": best_macro,
+                       "burn_in_steps": actual_burn_in, "phase": phase})
+            t_ckpt += time.time() - tc
+            last_ckpt = done
+
+    # --- burn-in (1p only), chunked so convergence/ckpt apply ---
+    burn_window = max(1, round(cfg.conv_window / steps_per))
+    if mega_burn is not None and done < burn_in_steps and actual_burn_in == done:
+        chunk_rounds = max(1, min(cfg.val_every, ckpt_every or cfg.val_every)
+                           // steps_per)
+        while done < burn_in_steps:
+            rounds = min(chunk_rounds,
+                         max(1, (burn_in_steps - done) // steps_per))
+            params, opt_state, ml = dispatch(mega_burn, rounds, ["1p"])
+            burn_series.extend(ml[:, 0].tolist())
+            actual_burn_in = done
+            maybe_ckpt("burn")
+            if log:
+                log(done, "1p", burn_series[-1])
+            if check_conv(burn_series, burn_window, cfg.tol):
+                break
+
+    # --- merge deferred pools (built while burn-in trained) ---
+    if deferred_pools is not None:
+        tw = time.time()
+        merged = deferred_pools()
+        t_pool_wait = time.time() - tw
+        for s, pool in merged.items():
+            check_placed(dev, f"the deferred {s} pool", pool.anchors)
+            data.pools[s] = pool
+            data.weights[s] = int(pool.n)
+            losses.setdefault(s, [])
+
+    # --- multitask rounds with eval / ckpt / convergence ---
+    mega_all = make_multitask_mega_step(cfg, optimizer, data)
+    n_struct = len(data.structures)
+    eval_every = max(1, min(cfg.val_every, total_steps - done)
+                     ) if total_steps > done else 1
+    multi_window = max(1, round(cfg.conv_window / (n_struct * steps_per)))
+    while done < total_steps:
+        seg = min(eval_every, total_steps - done)
+        rounds = max(1, round(seg / (n_struct * steps_per)))
+        params, opt_state, ml = dispatch(mega_all, rounds, data.structures)
+        multi_series.extend(ml.mean(axis=1).tolist())
+        if val_queries:
+            te = time.time()
+            val_queries = resolve_queries(val_queries)
+            t_val_wait += time.time() - te
+            te = time.time()
+            aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed)
+            t_eval += time.time() - te
+            macro = aucs.get("macro", 0.0)
+            val_history.append((done, macro))
+            if macro > best_macro:
+                best_macro = macro
+                best_params = tree_clone(params)
+        maybe_ckpt("multi")
+        if log:
+            log(done, "multitask", float(np.mean(
+                [losses[s][-1] for s in data.structures])))
+        if check_conv(multi_series, multi_window, cfg.tol):
+            break
+    if val_queries and not val_history:
+        # burn-in took the whole budget (or total_steps == 0): evaluate
+        # once so best_val_auc is never a meaningless -1
+        val_queries = resolve_queries(val_queries)
+        aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed)
+        macro = aucs.get("macro", 0.0)
+        val_history.append((done, macro))
+        best_macro, best_params = macro, params
+    session_steps = done - start_done
+    return TrainResult(
+        params=params,
+        best_params=best_params if best_macro >= 0 else params,
+        best_val_auc=best_macro,
+        steps=done,
+        burn_in_steps=actual_burn_in,
+        losses=losses,
+        val_history=val_history,
+        queries_per_sec=(session_steps * cfg.batch_size / t_train
+                         if t_train else 0.0),
+        timings={"train_s": t_train, "eval_s": t_eval, "ckpt_s": t_ckpt,
+                 "pool_wait_s": t_pool_wait, "val_wait_s": t_val_wait,
+                 "session_steps": session_steps},
+    )

@@ -137,3 +137,78 @@ def test_group_by_formula_and_make_batch_match_jax(structure, kind):
             kw = dict(batch_size=bs, neg_width=width, hard_neg_width=hard_width)
             _same_batch(make_batch(g_t.schema, chunk_t[i:i + n], rng=rng_t, **kw),
                         jax_make_batch(g_j.schema, chunk_j[i:i + n], rng=rng_j, **kw))
+
+
+@pytest.mark.parametrize("family", ["bio-latent", "reddit", "reddit-latent"])
+@pytest.mark.parametrize("seed,scale,deg", [(7, 0.5, 6.0), (0, 2.0, 8.0)])
+def test_other_generators_match_jax(family, seed, scale, deg):
+    """synthetic_graph_latent (at the protocol's scale 2.0 as well),
+    reddit_graph and reddit_graph_latent: the same graph edge for edge."""
+    from graphqembed_tpu.graph import synthetic as jsyn
+    from graphqembed_tpu_torch.graph import synthetic as tsyn
+
+    name = {"bio-latent": "synthetic_graph_latent", "reddit": "reddit_graph",
+            "reddit-latent": "reddit_graph_latent"}[family]
+    g_t = getattr(tsyn, name)(seed=seed, scale=scale, avg_degree=deg)
+    g_j = getattr(jsyn, name)(seed=seed, scale=scale, avg_degree=deg)
+    _same_graph(g_t, g_j)
+    assert g_t.num_edges() == g_j.num_edges()
+    for rel in g_t.schema.relations:
+        for a, b in zip(g_t.csr(rel), g_j.csr(rel)):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_protocol_graph_has_1760_nodes():
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph_latent
+
+    assert synthetic_graph_latent(seed=0, scale=2.0, avg_degree=8.0
+                                  ).schema.n_nodes == 1760
+
+
+def _seven(sampler_cls, g, n=25):
+    s = sampler_cls(g, np.random.default_rng(3), max_negs=12)
+    return [q for st in ("1p", "2p", "3p", "2i", "3i", "ip", "pi")
+            for q in s.sample_many(st, n)]
+
+
+def test_query_serialize_round_trips_and_matches_jax():
+    from graphqembed_tpu_torch.data.queries import MODERN_NAMES, REFERENCE_NAMES, Query
+    from graphqembed_tpu.data import queries as jq
+
+    g_t = synthetic_graph(seed=7, scale=0.5, avg_degree=6.0)
+    g_j = jax_graph(seed=7, scale=0.5, avg_degree=6.0)
+    qs_t, qs_j = _seven(QuerySampler, g_t), _seven(JaxSampler, g_j)
+    assert [q.serialize() for q in qs_t] == [q.serialize() for q in qs_j]
+    _same_queries([Query.deserialize(q.serialize()) for q in qs_t], qs_j)
+    _same_queries([Query.deserialize(q.serialize()) for q in qs_j], qs_j)
+    assert REFERENCE_NAMES == jq.REFERENCE_NAMES and MODERN_NAMES == jq.MODERN_NAMES
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_loader_reads_what_the_other_package_writes(tmp_path, writer):
+    """Graph pickles and native query sets written by one package load in
+    the other: the same graph edge for edge and the same queries."""
+    from graphqembed_tpu.data import loader as jl
+    from graphqembed_tpu_torch.data import loader as tl
+    from graphqembed_tpu_torch.graph.synthetic import reddit_graph_latent as tg
+    from graphqembed_tpu.graph.synthetic import reddit_graph_latent as jg
+
+    g_t, g_j = tg(seed=1, scale=0.3), jg(seed=1, scale=0.3)
+    qs_t, qs_j = _seven(QuerySampler, g_t), _seven(JaxSampler, g_j)
+    w, r = (jl, tl) if writer == "jax" else (tl, jl)
+    g_w, qs_w = (g_j, qs_j) if writer == "jax" else (g_t, qs_t)
+    w.export_reference_pickle(g_w, tmp_path / "graph_data.pkl")
+    w.save_queries(tmp_path / "q", g_w.schema, qs_w)
+    _same_graph(r.import_reference_graph(tmp_path / "graph_data.pkl"), g_j)
+    got = r.load_queries(tmp_path / "q")
+    # saved grouped by formula, in serialized-formula order
+    key = lambda q: (q.formula.serialize(), q.anchors, q.target)  # noqa: E731
+    _same_queries(sorted(got, key=key), sorted(qs_j, key=key))
+    by_t = tl.load_queries_by_formula(tmp_path / "q")
+    by_j = jl.load_queries_by_formula(tmp_path / "q")
+    assert {s: [f.serialize() for f in fs] for s, fs in by_t.items()} == \
+        {s: [f.serialize() for f in fs] for s, fs in by_j.items()}
+    for q in qs_t:
+        s, rels = q.formula.structure, q.formula.rels
+        assert tl.reference_rels_to_application_order(s, rels) \
+            == jl.reference_rels_to_application_order(s, rels)

@@ -411,3 +411,230 @@ def test_mega_step_refuses_what_is_not_ported(multitask_data):
     with pytest.raises(NotImplementedError, match="item 9"):
         tdd.make_multitask_mega_step(cfg, opt, multitask_data,
                                      neighbor_tables=object())
+
+
+# ---------- optimizers and the production driver ----------
+
+def test_sgd_opt_matches_optax_sgd_and_is_float32_only():
+    """SGDOpt takes optax.sgd's update (p − lr·g, within an ulp); the scan
+    step takes it under float32 storage and refuses it under bfloat16."""
+    import optax
+
+    rng = np.random.default_rng(0)
+    p = {"table": rng.normal(size=(6, 4)).astype(np.float32),
+         "proj": {"W": rng.normal(size=(2, 4, 4)).astype(np.float32)}}
+    g = jax.tree.map(lambda x: rng.normal(size=x.shape).astype(np.float32), p)
+    opt = optax.sgd(0.05)
+    upd, _ = opt.update(g, opt.init(p), p)
+    want = optax.apply_updates(p, upd)
+    tp = params_from_jax(p, device="cpu")
+    tg = params_from_jax(g, device="cpu")
+    sgd = tdd.SGDOpt(0.05)
+    got, state = sgd.apply(tp, tg, sgd.init(tp))
+    assert state == 1
+    for (path, a), b in zip(tree_paths(got), jax.tree.leaves(want)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=2e-7, atol=0, err_msg=path)
+    tdd.make_scan_train_step(GQEConfig(**CFG), tdd.SGDOpt(0.01))
+    with pytest.raises(ValueError, match="stochastic-rounding"):
+        tdd.make_scan_train_step(GQEConfig(**CFG, storage_dtype="bfloat16"),
+                                 tdd.SGDOpt(0.01))
+
+
+def test_mega_step_key_path_folds_the_dispatch_index(graph, multitask_data):
+    """key (seed, dispatch_i) draws structure si of round r from
+    derived_generator(seed, dispatch_i, r, si): two dispatch indices give
+    different batches, and an int key is the one-element path."""
+    cfg = GQEConfig(**dict(CFG, batch_size=16))
+    outs = []
+    for key in (7, (7,), (7, 1)):
+        params = init_params(cfg, graph.schema, torch.Generator().manual_seed(2),
+                             device="cpu")
+        opt = tdd.FusedAdamOpt(cfg.lr)
+        run = tdd.make_multitask_mega_step(cfg, opt, multitask_data)
+        _, _, losses = run(params, opt.init(params), key, 1, 2)
+        outs.append(losses)
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], outs[2])
+
+
+@pytest.fixture(scope="module")
+def mega_graph():
+    return synthetic_graph(seed=7, scale=0.5, avg_degree=6.0)
+
+
+def _mega_data(g, spec, seed):
+    s = QuerySampler(g, np.random.default_rng(seed), max_negs=10)
+    queries = []
+    for structure, n in spec:
+        queries += s.sample_many(structure, n)
+    return tdd.DeviceTrainData(g.schema, queries, device="cpu")
+
+
+def _mega_params(cfg, g, seed):
+    return init_params(cfg, g.schema, torch.Generator().manual_seed(seed),
+                       device="cpu")
+
+
+def test_run_train_device_mega_trains(mega_graph):
+    """The full driver on all 7 structures: burn-in runs to its budget,
+    every structure trains, evals fill val_history, the best parameters are
+    finite and a copy."""
+    from graphqembed_tpu_torch.config import STRUCTURES
+
+    cfg = GQEConfig(embed_dim=16, projection="transe", batch_size=32,
+                    lr=0.05, seed=0, max_iter=300, max_burn_in=100,
+                    val_every=100, tol=0.0, conv_window=10**6)
+    s = QuerySampler(mega_graph, np.random.default_rng(4), max_negs=10)
+    train, val = [], []
+    for st in STRUCTURES:
+        qs = s.sample_many(st, 60)
+        train += qs[:48]
+        val += qs[48:]
+    data = tdd.DeviceTrainData(mega_graph.schema, train, device="cpu")
+    res = tdd.run_train_device_mega(cfg, mega_graph.schema,
+                                    _mega_params(cfg, mega_graph, 2), data,
+                                    val_queries=val, steps_per=10, device="cpu")
+    assert res.steps >= cfg.max_iter
+    assert res.burn_in_steps == 100
+    assert res.best_val_auc > 0 and res.val_history
+    assert set(res.losses) == set(STRUCTURES)
+    assert res.timings["session_steps"] == res.steps
+    for (path, b), (_, p) in zip(tree_paths(res.best_params),
+                                 tree_paths(res.params)):
+        assert torch.isfinite(b.float()).all(), path
+        assert b.data_ptr() != p.data_ptr(), path
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_run_train_device_mega_resume_bitwise(mega_graph, tmp_path, storage):
+    """A run checkpointed at a dispatch boundary and resumed to the end has
+    the parameters, best parameters and val history of the uninterrupted
+    run bit for bit (dispatch i draws from derived_generator(seed, i, ...),
+    and dispatch_i / done are in meta.json), and the resumed session's q/s
+    counts only its own steps."""
+    from graphqembed_tpu_torch.training.checkpoint import CheckpointManager
+
+    cfg = GQEConfig(embed_dim=16, projection="bilinear", batch_size=32,
+                    lr=0.03, seed=0, val_every=30, tol=0.0,
+                    conv_window=10**6, storage_dtype=storage)
+    data = _mega_data(mega_graph, (("1p", 80), ("2i", 80)), 5)
+    s = QuerySampler(mega_graph, np.random.default_rng(15), max_negs=10)
+    val = s.sample_many("1p", 30) + s.sample_many("2i", 30)
+    kw = dict(val_queries=val, burn_in_steps=20, steps_per=10, device="cpu")
+
+    full = tdd.run_train_device_mega(cfg, mega_graph.schema,
+                                     _mega_params(cfg, mega_graph, 3), data,
+                                     total_steps=100, **kw)
+    mgr = CheckpointManager(tmp_path / "ckpts", keep=3)
+    tdd.run_train_device_mega(cfg, mega_graph.schema,
+                              _mega_params(cfg, mega_graph, 3), data,
+                              total_steps=60, ckpt_manager=mgr, ckpt_every=20,
+                              **kw)
+    restored_step = int(mgr.restore_latest(device="cpu")[1]["step"])
+    resumed = tdd.run_train_device_mega(cfg, mega_graph.schema,
+                                        _mega_params(cfg, mega_graph, 3), data,
+                                        total_steps=100, ckpt_manager=mgr,
+                                        ckpt_every=10**9, resume=True, **kw)
+    assert 0 < restored_step < 100
+    assert full.steps == resumed.steps == 100
+    for tree in ("params", "best_params"):
+        for (path, a), (_, b) in zip(tree_paths(getattr(full, tree)),
+                                     tree_paths(getattr(resumed, tree))):
+            assert a.dtype == b.dtype and torch.equal(a, b), (tree, path)
+    assert resumed.val_history == [v for v in full.val_history
+                                   if v[0] > restored_step]
+    assert resumed.best_val_auc == full.best_val_auc
+    t = resumed.timings
+    assert t["session_steps"] == 100 - restored_step
+    assert resumed.queries_per_sec == pytest.approx(
+        t["session_steps"] * cfg.batch_size / t["train_s"])
+
+
+def test_run_train_device_mega_convergence_stops(mega_graph):
+    """tol=1e9 makes check_conv fire as soon as the windowed series
+    exists: both burn-in and multitask stop far short of their budgets."""
+    cfg = GQEConfig(embed_dim=16, projection="transe", batch_size=32,
+                    lr=0.03, seed=0, val_every=40, tol=1e9, conv_window=20)
+    data = _mega_data(mega_graph, (("1p", 80), ("2i", 80)), 6)
+    res = tdd.run_train_device_mega(cfg, mega_graph.schema,
+                                    _mega_params(cfg, mega_graph, 3), data,
+                                    total_steps=100_000, burn_in_steps=50_000,
+                                    steps_per=10, device="cpu")
+    # window = 2 rounds: burn-in stops once 4 rounds of history exist;
+    # multitask after 2 dispatches
+    assert res.burn_in_steps <= 100, res.burn_in_steps
+    assert res.steps < 2000, res.steps
+
+
+def test_run_train_device_mega_deferred_pools(mega_graph):
+    """deferred_pools is called once, AFTER burn-in, and its pools join
+    the multitask phase."""
+    cfg = GQEConfig(embed_dim=16, projection="transe", batch_size=32,
+                    lr=0.05, seed=0, val_every=10**9, tol=0.0,
+                    conv_window=10**6)
+    s = QuerySampler(mega_graph, np.random.default_rng(7), max_negs=10)
+    data = tdd.DeviceTrainData(mega_graph.schema, s.sample_many("1p", 200),
+                               device="cpu")
+    fired = {"n": 0, "at": None}
+    burn_losses = []
+
+    def log(done, structure, loss):
+        if structure == "1p":
+            burn_losses.append(done)
+
+    def deferred():
+        fired["n"] += 1
+        fired["at"] = list(burn_losses)
+        return {"2i": tdd.DevicePool(mega_graph.schema, "2i",
+                                     s.sample_many("2i", 150), device="cpu")}
+
+    res = tdd.run_train_device_mega(cfg, mega_graph.schema,
+                                    _mega_params(cfg, mega_graph, 4), data,
+                                    total_steps=400, burn_in_steps=200,
+                                    steps_per=20, deferred_pools=deferred,
+                                    log=log, device="cpu")
+    assert fired["n"] == 1 and fired["at"][-1] == 200
+    assert res.burn_in_steps == 200
+    assert res.steps >= 400
+    assert len(res.losses["2i"]) > 0
+    assert len(res.losses["1p"]) > len(res.losses["2i"])
+    for _, leaf in tree_paths(res.params):
+        assert torch.isfinite(leaf).all()
+
+
+def test_run_train_device_mega_deferred_val_queries(mega_graph):
+    """val_queries as a callable: resolved once, at the first eval, and
+    the run evaluates normally; timings record the wait."""
+    cfg = GQEConfig(embed_dim=16, projection="transe", batch_size=32,
+                    lr=0.05, seed=0, val_every=100, tol=0.0,
+                    conv_window=10**6)
+    data = _mega_data(mega_graph, (("1p", 200), ("2i", 150)), 9)
+    sv = QuerySampler(mega_graph, np.random.default_rng(10), max_negs=10)
+    called = {"n": 0}
+
+    def val_fn():
+        called["n"] += 1
+        return sv.sample_many("1p", 40) + sv.sample_many("2i", 40)
+
+    res = tdd.run_train_device_mega(cfg, mega_graph.schema,
+                                    _mega_params(cfg, mega_graph, 5), data,
+                                    total_steps=300, burn_in_steps=100,
+                                    steps_per=20, val_queries=val_fn,
+                                    device="cpu")
+    assert called["n"] == 1
+    assert len(res.val_history) >= 1
+    assert res.best_val_auc > 0
+    assert "val_wait_s" in res.timings
+
+
+def test_run_train_device_mega_refuses_what_is_not_ported(mega_graph):
+    cfg = GQEConfig(embed_dim=16)
+    data = _mega_data(mega_graph, (("1p", 20),), 1)
+    params = _mega_params(cfg, mega_graph, 0)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tdd.run_train_device_mega(cfg, mega_graph.schema, params, data,
+                                  mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tdd.run_train_device_mega(cfg, mega_graph.schema, params, data,
+                                  neighbor_tables=object(), device="cpu")

@@ -93,6 +93,35 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(graph):
             call(device="cuda")
         call(device="cpu")
 
+    # the training drivers: parameters placed on the CPU run only when the
+    # caller names the CPU
+    from graphqembed_tpu_torch.training import run_train
+    from graphqembed_tpu_torch.training.device_data import run_train_device_mega
+
+    cfg = GQEConfig(embed_dim=8, batch_size=4, max_iter=2, max_burn_in=1,
+                    val_every=10**9)
+    data = DeviceTrainData(graph.schema, queries, device="cpu")
+    drivers = [
+        lambda **kw: run_train(cfg, graph.schema,
+                               init_params(cfg, graph.schema, device="cpu"),
+                               queries, **kw),
+        lambda **kw: run_train_device_mega(
+            cfg, graph.schema, init_params(cfg, graph.schema, device="cpu"),
+            data, steps_per=1, **kw),
+    ]
+    for call in drivers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+        assert call(device="cpu").steps >= 2
+
+    # the CLIs: no quiet CPU run without --cpu
+    from graphqembed_tpu_torch.cli import evaluate, train
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        train.main(["--synthetic", "--synthetic_scale", "0.1"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        evaluate.main(["--model_dir", "m", "--data_dir", "d"])
+
 
 def test_chip_smoke_fails_without_a_card():
     if torch.cuda.is_available():
