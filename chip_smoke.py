@@ -8,7 +8,8 @@ points, evaluates what it trained, and checks what comes out.
     python3 chip_smoke.py --profile   # adds a torch.profiler breakdown of
                                       # one 2p and one 3i chunk of the dense
                                       # and the rows path (device time by
-                                      # kernel, idle share)
+                                      # kernel, idle share), and of two
+                                      # onthefly dispatches
 
 Phases, each printing one JSON line; any failure exits non-zero:
   build      compile csrc/*.cu with nvcc (one process per source, together)
@@ -18,7 +19,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
              three id sets (uniform with repeats, one real 3i batch of the
              bench pools, all ids in 64 rows), bit for bit against its plain
              version and against the dense SR kernel fed the same gradient,
-             timed beside the dense route it replaces
+             timed beside the dense route it replaces; take_rows' backward
+             (scatter_rows) at [35200,128] bf16 from a bench 3i batch's
+             2,560 ids and seven more inputs, bit for bit against its plain
+             version, timed beside index_add_
   kernel_bench
              fused_intersection against its plain version at [3,1024,128],
              [2,1024,128] (eval's batches), [3,4096,128] (the JAX bench's),
@@ -64,11 +68,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
              bilinear/min, 12,000 steps with 3,000 of burn-in, evals every
              3,000, checkpoints every 3,000) with exact Adam launches and
              falling losses; its val macro AUC and APR against the JAX CPU
-             reference; SIGKILL after the first checkpoint and --resume,
-             bit for bit against an uninterrupted run (deterministic
-             algorithms; 2,000 steps); --pipeline host (float32, 3,000
-             steps) against its JAX CPU reference; gqe-torch-eval against
+             reference; SIGKILL after the first checkpoint and --resume
+             through the plain CLI, bit for bit against an uninterrupted
+             run (2,000 steps); --pipeline host (float32, 3,000 steps)
+             against its JAX CPU reference; gqe-torch-eval against
              metrics.json (1e-6)
+  onthefly   gqe-torch-train --pipeline onthefly --bf16 on the protocol's
+             graph and val queries (every batch sampled on the card): 12,000
+             steps with exact launches, falling losses (1p burn-in and the
+             intersection structures; 2p/3p, flat after burn-in as in JAX,
+             below the untrained parameters' loss), evals at the expected
+             steps, val macro AUC and APR against the JAX CPU reference;
+             SIGKILL and --resume through the plain CLI, bit for bit (2,000
+             steps)
 Then the card's name and power limit, the {"kernels": [...]} line, and the
 last line {"ok": true, "device": {...}}.
 """
@@ -92,6 +104,27 @@ def check(cond, msg):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def _count_modules():
+    from graphqembed_tpu_torch.ops import fused_adam, grads, kernels
+    return fused_adam, grads, kernels
+
+
+def reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    for m in _count_modules():
+        m.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    """Launches of every kernel wrapper since the last reset_counts()."""
+    return {k: v for m in _count_modules() for k, v in m.LAUNCHES.items()}
+
+
+def want_counts(**launched) -> dict:
+    """The counts of a run that launched only the named kernels."""
+    return {**{k: 0 for k in read_counts()}, **launched}
 
 
 # Timing and bounds come from the port's kernel bench
@@ -267,8 +300,84 @@ def phase_kernels(dev, work: dict):
                              "bound_ms": b_ms, "bound_by": b_by}}}
     out["fused_adam_table_sorted_rows_sr"] = check_rows_kernel(dev, work, rnd,
                                                                adam_state, lr)
+    out["scatter_rows"] = check_scatter_kernel(dev, work, gen)
     emit({"phase": "kernels", **out})
     return out
+
+
+def check_scatter_kernel(dev, work: dict, gen):
+    """scatter_rows (take_rows' backward) at the dense step's shape, the
+    bf16 [35200,128] table gradient from a bench 3i batch's L = 2,560 ids,
+    and on seven more inputs: the same ids in float32, uniform ids, all ids
+    in 64 rows, 9,000 ids (three of the kernel's 4,096-id passes), an odd
+    width (d = 36, one column per thread), a misaligned cotangent and the
+    protocol's 1,760-row table (32-row tiles).
+    Tolerance: bit-exact against the plain version on the card (the same
+    position-order sum, each sum rounded to the dtype). Timed beside zeros +
+    index_add_, the route it replaces, and index_add_ alone (the library
+    yardstick)."""
+    import torch
+
+    from graphqembed_tpu_torch.ops import grads
+    from graphqembed_tpu_torch.training.device_data import _batch_ids, _select_batches
+
+    n, d = 35200, 128
+    batch = _select_batches(work["cfg"], torch.Generator(device=dev).manual_seed(5),
+                            1, work["data"].pools["3i"], True)
+    bench_ids = _batch_ids(batch)[0].reshape(-1).contiguous()
+    length = bench_ids.numel()
+    check(length == 2560, f"{length} ids in a 3i batch")
+    hub = torch.randperm(n, generator=gen)[:64]
+    cases = {
+        "bench_3i_batch": (n, bench_ids, d, torch.bfloat16, 0),
+        "bench_3i_batch_f32": (n, bench_ids, d, torch.float32, 0),
+        "uniform": (n, torch.randint(0, n, (length,), generator=gen).to(dev), d,
+                    torch.bfloat16, 0),
+        "skewed_64_rows": (n, hub[torch.randint(0, 64, (length,), generator=gen)].to(dev),
+                           d, torch.bfloat16, 0),
+        "three_passes": (n, torch.randint(0, n, (9000,), generator=gen).to(dev), d,
+                         torch.bfloat16, 0),
+        "odd_width_36": (n, bench_ids, 36, torch.bfloat16, 0),
+        "misaligned": (n, bench_ids, d, torch.bfloat16, 1),
+        "table_1760": (1760, bench_ids % 1760, d, torch.bfloat16, 0),
+    }
+    rows = []
+    for name, (n, ids, width, dtype, shift) in cases.items():
+        count = ids.numel()
+        buf = (torch.randn(count * width + shift, generator=gen) * 0.01).to(dev, dtype)
+        ct = buf[shift:].view(count, width)
+        got = grads.scatter_rows(n, ids, ct)
+        want = grads.scatter_rows_plain(n, ids, ct)
+        torch.cuda.synchronize()
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        exact = torch.equal(got.view(bits), want.view(bits))
+        err = float((got.float() - want.float()).abs().max())
+        check(exact, f"scatter_rows differs from plain on {name}")
+        row = {"ids": name, "shape": [n, width], "length": count, "dtype": str(dtype),
+               "distinct_rows": int(torch.unique(ids).numel()),
+               "max_run": int(torch.bincount(ids).max()), "bit_exact": exact,
+               "max_abs_err": err}
+        if name in ("bench_3i_batch", "bench_3i_batch_f32"):
+            n_bytes = (n + count) * width * ct.element_size() + 8 * count
+            b_ms, b_by = bound(n_bytes, count * width)
+            g = torch.zeros((n, width), dtype=dtype, device=dev)
+
+            def old_route():
+                torch.zeros((n, width), dtype=dtype, device=dev).index_add_(0, ids, ct)
+
+            kernel = lambda: grads.scatter_rows(n, ids, ct)  # noqa: E731
+            row.update(
+                ms=device_ms(kernel), call_ms=time_ms(kernel),
+                plain_ms=device_ms(lambda: grads.scatter_rows_plain(n, ids, ct),
+                                   reps=5),
+                library_ms=device_ms(lambda: g.index_add_(0, ids, ct)),
+                zeros_index_add_ms=device_ms(old_route),
+                bytes=n_bytes, bound_ms=b_ms, bound_by=b_by)
+        rows.append(row)
+    return {"check": rows, "tolerance": "bit-exact",
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "library": "index_add_ into a zero table (float atomics, any order)",
+            "timing": {r["ids"]: r for r in rows if "ms" in r}}
 
 
 def rows_cost(n: int, d: int, length: int) -> tuple[int, int]:
@@ -524,7 +633,6 @@ def phase_train(dev, profile: bool, card: str, work: dict):
     import torch
 
     from graphqembed_tpu_torch.models.params import init_params
-    from graphqembed_tpu_torch.ops import fused_adam as fa
     from graphqembed_tpu_torch.training.device_data import (
         default_optimizer,
         make_scan_train_step,
@@ -546,17 +654,14 @@ def phase_train(dev, profile: bool, card: str, work: dict):
         return s, loss
 
     # the main path: counts from 0, two warm-up chunks, 20 timed chunks
-    fa.reset_launch_counts()
+    reset_counts()
     n_timed = 20
     losses, dev_s, wall = timed_chunks(chunk, 2, n_timed)
-    launches = dict(fa.LAUNCHES)
+    launches = read_counts()
     steps = (2 + n_timed) * CHUNK
-    check(launches["fused_adam_leaf_sr"] == steps,
-          f"SR kernel launches {launches} for {steps} steps")
-    check(launches["fused_adam_leaf"] == 3 * steps,
-          f"f32 kernel launches {launches} for {steps} steps")
-    check(launches["fused_adam_table_sorted_rows_sr"] == 0,
-          f"the dense path launched the rows kernel: {launches}")
+    want = want_counts(fused_adam_leaf=3 * steps, fused_adam_leaf_sr=steps,
+                       scatter_rows=steps)
+    check(launches == want, f"dense path launches {launches}, want {want}")
 
     check(params["table"].dtype == torch.bfloat16, "table left bfloat16")
     check(bool(torch.isfinite(params["table"].float()).all()), "table not finite")
@@ -572,12 +677,12 @@ def phase_train(dev, profile: bool, card: str, work: dict):
     opt32 = default_optimizer(cfg32)
     st32 = opt32.init(p32)
     run32 = make_scan_train_step(cfg32, opt32)
-    fa.reset_launch_counts()
+    reset_counts()
     p32, st32, l32 = run32(p32, st32, data.pools["3i"], "3i", gen, CHUNK, 1.0, True)
     l32 = float(l32)
-    launches32 = dict(fa.LAUNCHES)
-    check(launches32 == {"fused_adam_leaf": 4 * CHUNK, "fused_adam_leaf_sr": 0,
-                         "fused_adam_table_sorted_rows_sr": 0},
+    launches32 = read_counts()
+    check(launches32 == want_counts(fused_adam_leaf=4 * CHUNK,
+                                    scatter_rows=CHUNK),
           f"fp32 chunk launches {launches32}")
     check(np.isfinite(l32) and bool(torch.isfinite(p32["table"]).all()),
           "fp32 chunk not finite")
@@ -603,7 +708,6 @@ def phase_train_rows(dev, profile: bool, card: str, work: dict,
     import torch
 
     from graphqembed_tpu_torch.models.params import init_params, tree_paths
-    from graphqembed_tpu_torch.ops import fused_adam as fa
     from graphqembed_tpu_torch.training import device_data as dd
 
     graph, data = work["graph"], work["data"]
@@ -622,13 +726,13 @@ def phase_train_rows(dev, profile: bool, card: str, work: dict,
         return s, loss
 
     # the rows path: counts from 0 just before, read just after
-    fa.reset_launch_counts()
+    reset_counts()
     n_timed = 20
     losses, dev_s, wall = timed_chunks(chunk, 2, n_timed)
-    launches = dict(fa.LAUNCHES)
+    launches = read_counts()
     steps = (2 + n_timed) * CHUNK
-    check(launches == {"fused_adam_leaf": 3 * steps, "fused_adam_leaf_sr": 0,
-                       "fused_adam_table_sorted_rows_sr": steps},
+    check(launches == want_counts(fused_adam_leaf=3 * steps,
+                                  fused_adam_table_sorted_rows_sr=steps),
           f"rows path launches {launches} for {steps} steps")
     check(params["table"].dtype == torch.bfloat16, "table left bfloat16")
     check(bool(torch.isfinite(params["table"].float()).all()), "table not finite")
@@ -675,7 +779,6 @@ def phase_train_sparse(dev, card: str, work: dict):
     import torch
 
     from graphqembed_tpu_torch.models.params import init_params
-    from graphqembed_tpu_torch.ops import fused_adam as fa
     from graphqembed_tpu_torch.training import device_data as dd
     from graphqembed_tpu_torch.training.sparse_adam import init_lazy_adam
 
@@ -698,15 +801,14 @@ def phase_train_sparse(dev, card: str, work: dict):
                 CHUNK, 1.0, s == "3i" and cfg.hard_neg_alternate)
             return s, loss
 
-        fa.reset_launch_counts()
+        reset_counts()
         n_timed = 10
         losses, dev_s, wall = timed_chunks(chunk, 2, n_timed)
-        launches = dict(fa.LAUNCHES)
+        launches = read_counts()
         steps = (2 + n_timed) * CHUNK
         check(table_state.count == steps and opt_state[2] == steps,
               f"{name}: counts {table_state.count}, {opt_state[2]} for {steps} steps")
-        check(launches == {"fused_adam_leaf": 3 * steps, "fused_adam_leaf_sr": 0,
-                           "fused_adam_table_sorted_rows_sr": 0},
+        check(launches == want_counts(fused_adam_leaf=3 * steps),
               f"{name} launches {launches}")
         check(table.dtype == getattr(torch, cfg.storage_dtype), f"{name}: table dtype")
         check(bool(torch.isfinite(table.float()).all()), f"{name}: table not finite")
@@ -731,7 +833,6 @@ def phase_multitask(dev, card: str, work: dict):
     from graphqembed_tpu_torch.config import STRUCTURES
     from graphqembed_tpu_torch.data.sampling import QuerySampler
     from graphqembed_tpu_torch.models.params import init_params
-    from graphqembed_tpu_torch.ops import fused_adam as fa
     from graphqembed_tpu_torch.training import device_data as dd
 
     graph = work["graph"]
@@ -744,7 +845,7 @@ def phase_multitask(dev, card: str, work: dict):
     check(data.structures == list(STRUCTURES), f"structures {data.structures}")
     params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
     burn, total, chunk = 100, 800, 50
-    fa.reset_launch_counts()
+    reset_counts()
     torch.cuda.synchronize()
     w0 = time.perf_counter()
     params, state, losses = dd.run_train_device(
@@ -752,10 +853,10 @@ def phase_multitask(dev, card: str, work: dict):
         chunk=chunk)
     torch.cuda.synchronize()
     wall = time.perf_counter() - w0
-    launches = dict(fa.LAUNCHES)
+    launches = read_counts()
     check(state[2] == total, f"multitask took {state[2]} steps, want {total}")
-    check(launches == {"fused_adam_leaf": 3 * total, "fused_adam_leaf_sr": 0,
-                       "fused_adam_table_sorted_rows_sr": total},
+    check(launches == want_counts(fused_adam_leaf=3 * total,
+                                  fused_adam_table_sorted_rows_sr=total),
           f"multitask launches {launches}")
     for s, vs in losses.items():
         check(len(vs) >= 2 and all(np.isfinite(vs)) and vs[-1] < vs[0],
@@ -945,15 +1046,17 @@ def cli_flags(flags, budget):
 # (metrics.json, final_auc / final_apr macro).
 JAX_CPU_HEADLINE = {"auc": 0.6993628477809526, "apr": 0.6970255957608842}
 JAX_CPU_HOST = {"auc": 0.709130313483861}
+# The same for the on-device sampler: cli_flags(ONTHEFLY_FLAGS, HEADLINE)
+# (12,000 steps: the onthefly driver stops at max_iter exactly).
+JAX_CPU_ONTHEFLY = {"auc": 0.9095141638969242, "apr": 0.9096564718760127}
 QUALITY_TOL = 0.03
-# The kill/resume check runs with torch.use_deterministic_algorithms(True):
-# take_rows' backward is index_add_, whose float atomics reorder sums on the
-# card; in deterministic mode PyTorch runs its sorted deterministic version,
-# and cuBLAS needs CUBLAS_WORKSPACE_CONFIG (set in main). Resume is then
-# compared bit for bit.
-DETERMINISTIC_MAIN = ("import sys, torch; torch.use_deterministic_algorithms(True); "
-                      "from graphqembed_tpu_torch.cli.train import main; "
-                      "sys.exit(main(sys.argv[1:]))")
+ONTHEFLY_FLAGS = ["--pipeline", "onthefly", "--bf16", "--lr", "0.03",
+                  "--tol=-1e9", "--seed", "0"]
+# The kill/resume checks run the plain CLI (`python -m
+# graphqembed_tpu_torch.cli.train`): the port's train step is deterministic
+# on the card (take_rows' backward is a sorted sum, ops/grads.py), so a
+# resumed run is compared bit for bit with an uninterrupted one.
+CLI = ["-m", "graphqembed_tpu_torch.cli.train"]
 
 
 def write_protocol_data(path):
@@ -1023,205 +1126,370 @@ def eval_boundaries(total, burn, val_every, n_struct, steps_per):
     return out
 
 
+def onthefly_eval_steps(total, burn, val_every, n_struct, steps_per):
+    """The steps at which run_train_onthefly evaluates: at the end of the
+    first round that reaches val_every steps past burn-in or the last eval."""
+    done, nxt, out = burn, burn + val_every, []
+    while done < total:
+        done = min(total, done + n_struct * steps_per)
+        if done >= nxt:
+            out.append(done)
+            nxt = done + val_every
+    return out
+
+
 def load_params(path):
     import torch
     return torch.load(path / "state.pt", weights_only=True, map_location="cpu")["params"]
 
 
-def phase_protocol(card: str):
-    """The training protocol through the port's CLIs on the card at full
-    width (d=128, B=512, bilinear/min, bf16): the headline run with its
-    launches, quality against the JAX CPU reference, SIGKILL and --resume,
-    the host pipeline, and gqe-torch-eval against metrics.json."""
+def kill_and_resume(tmp, name: str, flags: list, whole_dir=None) -> dict:
+    """The plain CLI with `flags` killed by SIGKILL once a checkpoint's
+    meta.json exists, then rerun with --resume to the end; against an
+    uninterrupted run of the same flags (in this process, or the run already
+    in `whole_dir`), the final parameters must agree bit for bit and the val
+    AUC exactly."""
     import math
     import signal
-    import tempfile
-    from pathlib import Path
 
-    import numpy as np
     import torch
+
+    from graphqembed_tpu_torch.cli import train as cli
+    from graphqembed_tpu_torch.models.params import tree_paths
+
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    killed_dir = tmp / f"{name}_killed"
+    cmd = [sys.executable, *CLI, *flags, "--model_dir", str(killed_dir)]
+    with open(tmp / f"{name}_killed.log", "w") as log:
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL, stderr=log)
+        try:
+            deadline = time.time() + 300
+            while time.time() < deadline and proc.poll() is None:
+                if any((killed_dir / "ckpts").glob("step_*/meta.json")):
+                    proc.send_signal(signal.SIGKILL)
+                    break
+                time.sleep(0.05)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait(timeout=60)
+    check(proc.returncode == -signal.SIGKILL,
+          f"{name}: the run to kill ended with rc {proc.returncode}: "
+          f"{(tmp / f'{name}_killed.log').read_text()[-2000:]}")
+    restored = max(int(d.name[5:]) for d in (killed_dir / "ckpts").glob("step_*")
+                   if (d / "meta.json").exists())
+    r = subprocess.run([*cmd, "--resume"], env=env, capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, f"{name}: resumed run rc {r.returncode}: {r.stderr[-2000:]}")
+    resumed = json.loads((killed_dir / "metrics.json").read_text())
+    if whole_dir is None:
+        whole_dir = tmp / f"{name}_whole"
+        rc, _, _ = run_cli(cli.main, flags + ["--model_dir", str(whole_dir)])
+        check(rc == 0, f"{name}: uninterrupted run rc {rc}")
+    uninterrupted = json.loads((whole_dir / "metrics.json").read_text())
+    batch = json.loads((whole_dir / "config.json").read_text())["batch_size"]
+    rt = resumed["timings"]
+    check(resumed["steps"] == uninterrupted["steps"],
+          f"{name}: steps {resumed['steps']} resumed, {uninterrupted['steps']} whole")
+    check(rt["session_steps"] == resumed["steps"] - restored,
+          f"{name}: resumed session counted {rt['session_steps']} steps, "
+          f"restored at {restored} of {resumed['steps']}")
+    check(math.isclose(resumed["queries_per_sec"],
+                       rt["session_steps"] * batch / rt["train_s"], rel_tol=1e-9),
+          f"{name}: resumed q/s {resumed['queries_per_sec']}")
+    last = f"step_{resumed['steps']:08d}"
+    pa = load_params(killed_dir / "ckpts" / last)
+    pb = load_params(whole_dir / "ckpts" / last)
+    same = {p: bool(torch.equal(a, b)) for (p, a), (_, b) in
+            zip(tree_paths(pa), tree_paths(pb))}
+    check(all(same.values()), f"{name}: resumed final parameters differ: {same}")
+    check(resumed["final_auc"] == uninterrupted["final_auc"]
+          and resumed["best_val_auc"] == uninterrupted["best_val_auc"],
+          f"{name}: resumed and uninterrupted val AUC differ")
+    return {"restored_step": restored, "steps": resumed["steps"],
+            "session_steps": rt["session_steps"], "session_train_s": rt["train_s"],
+            "queries_per_sec": resumed["queries_per_sec"],
+            "params_bit_identical": True,
+            "val_macro_auc": resumed["final_auc"]["macro"]}
+
+
+def headline_summary(metrics: dict, res, launches: dict, wall: float,
+                     card: str) -> dict:
+    t = metrics["timings"]
+    return {"steps": metrics["steps"], "burn_in_steps": metrics["burn_in_steps"],
+            "ms_per_step": 1e3 * t["train_s"] / t["session_steps"],
+            "train_qps": metrics["queries_per_sec"], "timings": t,
+            "wall_s": wall, "launches": launches, "val_history": res.val_history,
+            "auc": metrics["final_auc"], "auc_hard": metrics["final_auc_hard"],
+            "apr": metrics["final_apr"], "card": card}
+
+
+def check_quality(metrics: dict, ref: dict, what: str) -> dict:
+    q = {"auc": metrics["final_auc"]["macro"], "apr": metrics["final_apr"]["macro"]}
+    for m, v in q.items():
+        check(v >= ref[m] - QUALITY_TOL,
+              f"{what}: val macro {m} {v} below the JAX CPU reference "
+              f"{ref[m]} - {QUALITY_TOL}")
+    return q
+
+
+def check_params_finite(best, res):
+    import torch
+
+    from graphqembed_tpu_torch.models.params import tree_paths
+    for name, tree in (("best", best), ("final", res.params)):
+        check(all(bool(torch.isfinite(v.float()).all()) for _, v in tree_paths(tree)),
+              f"{name} parameters not finite")
+
+
+def phase_protocol(card: str, data):
+    """The training protocol through the port's CLIs on the card at full
+    width (d=128, B=512, bilinear/min, bf16), on the data directory `data`
+    (write_protocol_data): the headline run with its launches, quality
+    against the JAX CPU reference, SIGKILL and --resume, the host pipeline,
+    and gqe-torch-eval against metrics.json."""
+    import numpy as np
 
     from graphqembed_tpu_torch import training
     from graphqembed_tpu_torch.cli import evaluate
     from graphqembed_tpu_torch.cli import train as cli
-    from graphqembed_tpu_torch.models.params import tree_paths
     from graphqembed_tpu_torch.ops import fused_adam as fa
-    from graphqembed_tpu_torch.ops import kernels as K
     from graphqembed_tpu_torch.training import device_data as dd
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        data = tmp / "data"
-        t0 = time.perf_counter()
-        info = write_protocol_data(data)
-        emit({"phase": "protocol", "step": "data", **info,
-              "seconds": time.perf_counter() - t0})
-        base = ["--data_dir", str(data)]
+    tmp = data.parent
+    base = ["--data_dir", str(data)]
 
-        # 2. the headline run: counts from 0 around it
-        head = tmp / "head"
-        fa.reset_launch_counts()
-        K.reset_launch_counts()
-        w0 = time.perf_counter()
-        rc, _, res = run_cli(
-            cli.main, base + cli_flags(PROTOCOL_FLAGS, HEADLINE)
-            + ["--model_dir", str(head)], dd, "run_train_device_mega")
-        wall = time.perf_counter() - w0
-        launches = {**fa.LAUNCHES, **K.LAUNCHES}
-        check(rc == 0 and len(res) == 1, f"headline run: rc {rc}")
-        res = res[0]
-        metrics = json.loads((head / "metrics.json").read_text())
-        steps = metrics["steps"]
-        batch = json.loads((head / "config.json").read_text())["batch_size"]
-        check(steps >= HEADLINE["max_iter"], f"headline run took {steps} steps")
-        want = {"fused_adam_leaf": 3 * steps, "fused_adam_leaf_sr": steps,
-                "fused_adam_table_sorted_rows_sr": 0, "fused_intersection": 0,
-                "gather_normalize": 0, "sddmm_scores": 0}
-        check(launches == want, f"headline launches {launches}, want {want}")
-        best = load_params(head / "best")
-        check(all(bool(torch.isfinite(v.float()).all()) for _, v in tree_paths(best)),
-              "best parameters not finite")
-        check(all(bool(torch.isfinite(v.float()).all()) for _, v in tree_paths(res.params)),
-              "final parameters not finite")
-        steps_per = cli.dispatch_steps_per(HEADLINE["max_iter"])
-        burn = res.losses["1p"][:res.burn_in_steps // steps_per]
-        n_struct = len(res.losses)
-        # each structure that first trains in the multitask phase: its
-        # (weighted) round losses fall. The 1p loss, which dominates the
-        # mean, first rises there as the other structures move the table.
-        multi = {s: v for s, v in res.losses.items() if s != "1p"}
-        check(all(np.isfinite(burn)) and fell(burn), f"burn-in loss did not fall: {burn}")
-        for s, v in multi.items():
-            check(all(np.isfinite(v)) and fell(v), f"multitask {s} loss did not fall: {v}")
-        bounds = eval_boundaries(HEADLINE["max_iter"], res.burn_in_steps,
-                                 HEADLINE["val_every"], n_struct, steps_per)
-        check([s for s, _ in res.val_history] == bounds,
-              f"val_history {res.val_history}, eval boundaries {bounds}")
-        kept = sorted(d.name for d in (head / "ckpts").glob("step_*"))
-        check(0 < len(kept) <= 3, f"checkpoints kept: {kept}")
-        t = metrics["timings"]
-        out["headline"] = {
-            "steps": steps, "burn_in_steps": metrics["burn_in_steps"],
-            "ms_per_step": 1e3 * t["train_s"] / t["session_steps"],
-            "train_qps": metrics["queries_per_sec"], "timings": t,
-            "wall_s": wall, "launches": launches, "val_history": res.val_history,
-            "checkpoints_kept": kept, "loss_burn_first_last": [burn[0], burn[-1]],
-            "loss_multi_first_last": {s: [v[0], v[-1]] for s, v in multi.items()},
-            "auc": metrics["final_auc"], "auc_hard": metrics["final_auc_hard"],
-            "apr": metrics["final_apr"], "card": card}
-        emit({"phase": "protocol", "step": "headline", **out["headline"]})
+    # 1. the headline run: counts from 0 around it
+    head = tmp / "head"
+    reset_counts()
+    w0 = time.perf_counter()
+    rc, _, res = run_cli(
+        cli.main, base + cli_flags(PROTOCOL_FLAGS, HEADLINE)
+        + ["--model_dir", str(head)], dd, "run_train_device_mega")
+    wall = time.perf_counter() - w0
+    launches = read_counts()
+    check(rc == 0 and len(res) == 1, f"headline run: rc {rc}")
+    res = res[0]
+    metrics = json.loads((head / "metrics.json").read_text())
+    steps = metrics["steps"]
+    check(steps >= HEADLINE["max_iter"], f"headline run took {steps} steps")
+    want = want_counts(fused_adam_leaf=3 * steps, fused_adam_leaf_sr=steps,
+                       scatter_rows=steps)
+    check(launches == want, f"headline launches {launches}, want {want}")
+    check_params_finite(load_params(head / "best"), res)
+    steps_per = cli.dispatch_steps_per(HEADLINE["max_iter"])
+    burn = res.losses["1p"][:res.burn_in_steps // steps_per]
+    n_struct = len(res.losses)
+    # each structure that first trains in the multitask phase: its
+    # (weighted) round losses fall. The 1p loss, which dominates the
+    # mean, first rises there as the other structures move the table.
+    multi = {s: v for s, v in res.losses.items() if s != "1p"}
+    check(all(np.isfinite(burn)) and fell(burn), f"burn-in loss did not fall: {burn}")
+    for s, v in multi.items():
+        check(all(np.isfinite(v)) and fell(v), f"multitask {s} loss did not fall: {v}")
+    bounds = eval_boundaries(HEADLINE["max_iter"], res.burn_in_steps,
+                             HEADLINE["val_every"], n_struct, steps_per)
+    check([s for s, _ in res.val_history] == bounds,
+          f"val_history {res.val_history}, eval boundaries {bounds}")
+    kept = sorted(d.name for d in (head / "ckpts").glob("step_*"))
+    check(0 < len(kept) <= 3, f"checkpoints kept: {kept}")
+    out["headline"] = {
+        **headline_summary(metrics, res, launches, wall, card),
+        "checkpoints_kept": kept, "loss_burn_first_last": [burn[0], burn[-1]],
+        "loss_multi_first_last": {s: [v[0], v[-1]] for s, v in multi.items()}}
+    emit({"phase": "protocol", "step": "headline", **out["headline"]})
 
-        # 3. quality against the JAX CPU reference on the same data and flags
-        q = {"auc": metrics["final_auc"]["macro"], "apr": metrics["final_apr"]["macro"]}
-        for m, v in q.items():
-            check(v >= JAX_CPU_HEADLINE[m] - QUALITY_TOL,
-                  f"val macro {m} {v} below the JAX CPU reference "
-                  f"{JAX_CPU_HEADLINE[m]} - {QUALITY_TOL}")
-        emit({"phase": "protocol", "step": "quality", "card": q,
-              "jax_cpu": JAX_CPU_HEADLINE, "tolerance": QUALITY_TOL})
+    # 2. quality against the JAX CPU reference on the same data and flags
+    q = check_quality(metrics, JAX_CPU_HEADLINE, "headline")
+    emit({"phase": "protocol", "step": "quality", "card": q,
+          "jax_cpu": JAX_CPU_HEADLINE, "tolerance": QUALITY_TOL})
 
-        # 4. SIGKILL once a checkpoint exists, then --resume; against an
-        # uninterrupted run, all in deterministic mode
-        env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-        killed_dir = tmp / "killed"
-        resume_flags = base + cli_flags(PROTOCOL_FLAGS, RESUME)
-        cmd = [sys.executable, "-c", DETERMINISTIC_MAIN, *resume_flags,
-               "--model_dir", str(killed_dir)]
-        with open(tmp / "killed.log", "w") as log:
-            proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
-                                    stderr=log)
-            try:
-                deadline = time.time() + 300
-                while time.time() < deadline and proc.poll() is None:
-                    if any((killed_dir / "ckpts").glob("step_*/meta.json")):
-                        proc.send_signal(signal.SIGKILL)
-                        break
-                    time.sleep(0.05)
-            finally:
-                if proc.poll() is None:
-                    proc.kill()
-                proc.wait(timeout=60)
-        check(proc.returncode == -signal.SIGKILL,
-              f"the run to kill ended with rc {proc.returncode}: "
-              f"{(tmp / 'killed.log').read_text()[-2000:]}")
-        restored = max(int(d.name[5:]) for d in (killed_dir / "ckpts").glob("step_*")
-                       if (d / "meta.json").exists())
-        r = subprocess.run([*cmd, "--resume"], env=env, capture_output=True,
-                           text=True, timeout=600)
-        check(r.returncode == 0, f"resumed run rc {r.returncode}: {r.stderr[-2000:]}")
-        resumed = json.loads((killed_dir / "metrics.json").read_text())
-        torch.use_deterministic_algorithms(True)
-        try:
-            whole = tmp / "whole"
-            rc, _, _ = run_cli(cli.main, resume_flags + ["--model_dir", str(whole)])
-        finally:
-            torch.use_deterministic_algorithms(False)
-        check(rc == 0, f"uninterrupted run rc {rc}")
-        uninterrupted = json.loads((whole / "metrics.json").read_text())
-        rt = resumed["timings"]
-        check(resumed["steps"] >= RESUME["max_iter"]
-              and resumed["steps"] == uninterrupted["steps"],
-              f"steps {resumed['steps']} resumed, {uninterrupted['steps']} whole")
-        check(rt["session_steps"] == resumed["steps"] - restored,
-              f"resumed session counted {rt['session_steps']} steps, "
-              f"restored at {restored} of {resumed['steps']}")
-        check(math.isclose(resumed["queries_per_sec"],
-                           rt["session_steps"] * batch / rt["train_s"], rel_tol=1e-9),
-              f"resumed q/s {resumed['queries_per_sec']}")
-        last = f"step_{resumed['steps']:08d}"
-        pa, pb = load_params(killed_dir / "ckpts" / last), load_params(whole / "ckpts" / last)
-        same = {p: bool(torch.equal(a, b)) for (p, a), (_, b) in
-                zip(tree_paths(pa), tree_paths(pb))}
-        check(all(same.values()), f"resumed final parameters differ: {same}")
-        check(resumed["final_auc"] == uninterrupted["final_auc"]
-              and resumed["best_val_auc"] == uninterrupted["best_val_auc"],
-              "resumed and uninterrupted val AUC differ")
-        out["resume"] = {"restored_step": restored, "steps": resumed["steps"],
-                         "session_steps": rt["session_steps"],
-                         "session_train_s": rt["train_s"],
-                         "queries_per_sec": resumed["queries_per_sec"],
-                         "params_bit_identical": True,
-                         "val_macro_auc": resumed["final_auc"]["macro"]}
-        emit({"phase": "protocol", "step": "resume", **out["resume"]})
+    # 3. SIGKILL once a checkpoint exists, then --resume, through the plain
+    # CLI; against an uninterrupted run
+    out["resume"] = kill_and_resume(tmp, "device", base + cli_flags(PROTOCOL_FLAGS,
+                                                                    RESUME))
+    emit({"phase": "protocol", "step": "resume", **out["resume"]})
 
-        # 5. the host pipeline: the reference schedule, float32
-        host = tmp / "host"
-        fa.reset_launch_counts()
-        rc, _, hres = run_cli(cli.main, base + cli_flags(HOST_FLAGS, HOST)
-                              + ["--model_dir", str(host)], training, "run_train")
-        check(rc == 0 and len(hres) == 1, f"host run rc {rc}")
-        hm = json.loads((host / "metrics.json").read_text())
-        hres = hres[0]
-        check(hm["steps"] == HOST["max_iter"], f"host run took {hm['steps']} steps")
-        check(dict(fa.LAUNCHES) == {"fused_adam_leaf": 4 * hm["steps"],
-                                    "fused_adam_leaf_sr": 0,
-                                    "fused_adam_table_sorted_rows_sr": 0},
-              f"host launches {fa.LAUNCHES}")
-        hloss = hres.losses["1p"][:hres.burn_in_steps]
-        check(all(np.isfinite(v) for vs in hres.losses.values() for v in vs)
-              and fell(hloss, 100), "host loss not finite or not falling")
-        hq = {m: hm[k]["macro"] for m, k in (("auc", "final_auc"), ("apr", "final_apr"))}
-        check(all(np.isfinite(list(hq.values()))), f"host metrics {hq}")
-        check(hq["auc"] >= JAX_CPU_HOST["auc"] - QUALITY_TOL,
-              f"host val macro AUC {hq['auc']} below the JAX CPU reference "
-              f"{JAX_CPU_HOST['auc']} - {QUALITY_TOL}")
-        out["host"] = {"steps": hm["steps"], "queries_per_sec": hm["queries_per_sec"],
-                       "auc": hm["final_auc"], "apr": hm["final_apr"],
-                       "jax_cpu_auc": JAX_CPU_HOST["auc"]}
-        emit({"phase": "protocol", "step": "host", **out["host"]})
+    # 4. the host pipeline: the reference schedule, float32
+    host = tmp / "host"
+    reset_counts()
+    rc, _, hres = run_cli(cli.main, base + cli_flags(HOST_FLAGS, HOST)
+                          + ["--model_dir", str(host)], training, "run_train")
+    check(rc == 0 and len(hres) == 1, f"host run rc {rc}")
+    hm = json.loads((host / "metrics.json").read_text())
+    hres = hres[0]
+    check(hm["steps"] == HOST["max_iter"], f"host run took {hm['steps']} steps")
+    check(dict(fa.LAUNCHES) == {"fused_adam_leaf": 4 * hm["steps"],
+                                "fused_adam_leaf_sr": 0,
+                                "fused_adam_table_sorted_rows_sr": 0},
+          f"host launches {fa.LAUNCHES}")
+    hloss = hres.losses["1p"][:hres.burn_in_steps]
+    check(all(np.isfinite(v) for vs in hres.losses.values() for v in vs)
+          and fell(hloss, 100), "host loss not finite or not falling")
+    hq = {m: hm[k]["macro"] for m, k in (("auc", "final_auc"), ("apr", "final_apr"))}
+    check(all(np.isfinite(list(hq.values()))), f"host metrics {hq}")
+    check(hq["auc"] >= JAX_CPU_HOST["auc"] - QUALITY_TOL,
+          f"host val macro AUC {hq['auc']} below the JAX CPU reference "
+          f"{JAX_CPU_HOST['auc']} - {QUALITY_TOL}")
+    out["host"] = {"steps": hm["steps"], "queries_per_sec": hm["queries_per_sec"],
+                   "auc": hm["final_auc"], "apr": hm["final_apr"],
+                   "jax_cpu_auc": JAX_CPU_HOST["auc"]}
+    emit({"phase": "protocol", "step": "host", **out["host"]})
 
-        # 6. gqe-torch-eval reproduces metrics.json
-        rc, text, _ = run_cli(evaluate.main, ["--model_dir", str(head), "--data_dir",
-                                              str(data), "--split", "val_queries"])
-        check(rc == 0, f"gqe-torch-eval rc {rc}")
-        ev = json.loads(text)
-        diff = max(abs(ev[a][k] - metrics[b][k])
-                   for a, b in (("auc", "final_auc"), ("auc_hard", "final_auc_hard"),
-                                ("apr", "final_apr")) for k in metrics[b])
-        check(diff <= 1e-6, f"gqe-torch-eval differs from metrics.json by {diff}")
-        emit({"phase": "protocol", "step": "eval_cli", "max_diff": diff})
+    # 5. gqe-torch-eval reproduces metrics.json
+    rc, text, _ = run_cli(evaluate.main, ["--model_dir", str(head), "--data_dir",
+                                          str(data), "--split", "val_queries"])
+    check(rc == 0, f"gqe-torch-eval rc {rc}")
+    ev = json.loads(text)
+    diff = max(abs(ev[a][k] - metrics[b][k])
+               for a, b in (("auc", "final_auc"), ("auc_hard", "final_auc_hard"),
+                            ("apr", "final_apr")) for k in metrics[b])
+    check(diff <= 1e-6, f"gqe-torch-eval differs from metrics.json by {diff}")
+    emit({"phase": "protocol", "step": "eval_cli", "max_diff": diff})
     return out
+
+
+def profile_onthefly(data) -> dict:
+    """The onthefly step at the protocol's settings outside the CLI: one
+    dispatch's sampling alone (device and call time), the step time over 14
+    timed dispatches (two rounds of the 7 structures, after one warm-up
+    round), then a torch.profiler breakdown of a 2p and a 3i dispatch."""
+    import torch
+
+    from graphqembed_tpu_torch.config import INTERSECT_STRUCTURES, STRUCTURES, GQEConfig
+    from graphqembed_tpu_torch.data.loader import import_reference_graph
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.training import device_sampler as ds
+    from graphqembed_tpu_torch.training.device_data import default_optimizer
+    from graphqembed_tpu_torch.training.loop import structure_weight
+
+    graph = import_reference_graph(data / "graph_data.pkl")
+    cfg = GQEConfig(lr=0.03, compute_dtype="bfloat16", storage_dtype="bfloat16")
+    dg = ds.DeviceGraph.build(graph, sample_size=8, seed=0)
+    params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+    opt = default_optimizer(cfg)
+    state = opt.init(params)
+    run = ds.make_onthefly_train_step(cfg, opt, dg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    order = list(STRUCTURES) * 3 + ["2p", "3i"]
+
+    def chunk(i):
+        nonlocal params, state
+        s = order[i]
+        params, state, loss = run(params, state, s, gen, CHUNK,
+                                  structure_weight(cfg, s), s in INTERSECT_STRUCTURES)
+        return s, loss
+
+    sample = lambda: ds.sample_dispatch(  # noqa: E731
+        cfg, dg, ds.torch_draw(gen), "3i", CHUNK, True)
+    sample_ms, sample_call_ms = device_ms(sample, reps=5), time_ms(sample, reps=5, inner=1)
+    _, dev_s, wall = timed_chunks(chunk, 7, 14)
+    ms_per_step = dev_s * 1e3 / (14 * CHUNK)
+    return {"ms_per_step": ms_per_step, "wall_ms_per_step": wall * 1e3 / (14 * CHUNK),
+            "sample_3i_dispatch_device_ms": sample_ms,
+            "sample_3i_dispatch_call_ms": sample_call_ms,
+            "profile_2p_3i": profile_chunk(chunk, 21, ms_per_step)}
+
+
+def untrained_losses(data, device="cuda") -> dict:
+    """Per structure, the weighted loss of the CLI's initial parameters
+    (seed 0) on four onthefly batches of the protocol graph, as the run's
+    dispatch losses are measured (hard negatives on the intersection
+    structures' odd steps)."""
+    import torch
+
+    from graphqembed_tpu_torch.config import INTERSECT_STRUCTURES, STRUCTURES, GQEConfig
+    from graphqembed_tpu_torch.data.loader import import_reference_graph
+    from graphqembed_tpu_torch.models import gqe
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.training import device_sampler as ds
+    from graphqembed_tpu_torch.training.loop import structure_weight
+
+    graph = import_reference_graph(data / "graph_data.pkl")
+    cfg = GQEConfig(compute_dtype="bfloat16", storage_dtype="bfloat16")
+    dg = ds.DeviceGraph.build(graph, sample_size=8, seed=0, device=device)
+    params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0),
+                         device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    out = {}
+    with torch.no_grad():
+        for s in STRUCTURES:
+            b = ds.sample_dispatch(cfg, dg, ds.torch_draw(gen), s, 4,
+                                   s in INTERSECT_STRUCTURES)
+            out[s] = structure_weight(cfg, s) * float(torch.stack([
+                gqe.margin_loss_rows_onegather(
+                    cfg, params, s, b["anchors"][t], b["rels"][t],
+                    b["inter_modes"][t], b["targets"][t], b["negs"][t], b["mask"][t])
+                for t in range(4)]).mean())
+    return out
+
+
+def phase_onthefly(card: str, data, profile: bool = False):
+    """gqe-torch-train --pipeline onthefly on the protocol's data directory
+    (its graph and val queries; no training queries are read) at full width
+    (d=128, B=512, bilinear/min, bf16): 12,000 steps, every batch of all 7
+    structures sampled on the card, with exact launches per step, falling
+    losses and quality against the JAX CPU reference; then
+    SIGKILL and --resume through the plain CLI at the RESUME budget, bit for
+    bit against an uninterrupted run."""
+    import numpy as np
+
+    from graphqembed_tpu_torch.cli import train as cli
+    from graphqembed_tpu_torch.config import INTERSECT_STRUCTURES
+    from graphqembed_tpu_torch.training import device_sampler as ds
+
+    tmp = data.parent
+    base = ["--data_dir", str(data)]
+    run_dir = tmp / "onthefly"
+    reset_counts()
+    w0 = time.perf_counter()
+    rc, _, res = run_cli(cli.main, base + cli_flags(ONTHEFLY_FLAGS, HEADLINE)
+                         + ["--model_dir", str(run_dir)], ds, "run_train_onthefly")
+    wall = time.perf_counter() - w0
+    launches = read_counts()
+    check(rc == 0 and len(res) == 1, f"onthefly run: rc {rc}")
+    res = res[0]
+    metrics = json.loads((run_dir / "metrics.json").read_text())
+    steps = metrics["steps"]
+    check(steps == HEADLINE["max_iter"] and metrics["burn_in_steps"] == HEADLINE["max_burn_in"],
+          f"onthefly run took {steps} steps, {metrics['burn_in_steps']} of burn-in")
+    want = want_counts(fused_adam_leaf=3 * steps, fused_adam_leaf_sr=steps,
+                       scatter_rows=steps)
+    check(launches == want, f"onthefly launches {launches}, want {want}")
+    check_params_finite(load_params(run_dir / "best"), res)
+    steps_per = cli.dispatch_steps_per(HEADLINE["max_iter"])
+    burn = res.losses["1p"][:res.burn_in_steps // steps_per]
+    multi = {s: v for s, v in res.losses.items() if s != "1p"}
+    check(all(np.isfinite(burn)) and fell(burn), f"burn-in loss did not fall: {burn}")
+    # the intersection structures' own parameters first train in the
+    # multitask phase: their losses fall there. The chains' (2p, 3p) reach
+    # their level during burn-in, which trains the same projections, and
+    # stay flat on fresh samples (as in the JAX CPU run): their losses must
+    # lie below the untrained parameters' loss on the same kind of batches.
+    untrained = untrained_losses(data)
+    for s, v in multi.items():
+        check(all(np.isfinite(v)), f"onthefly {s} loss not finite: {v}")
+        check(fell(v) if s in INTERSECT_STRUCTURES else np.mean(v[-3:]) < untrained[s],
+              f"onthefly {s} loss did not fall: {v} (untrained {untrained[s]})")
+    evals = onthefly_eval_steps(steps, res.burn_in_steps, HEADLINE["val_every"],
+                                len(res.losses), steps_per)
+    check([s for s, _ in res.val_history] == evals,
+          f"val_history {res.val_history}, eval steps {evals}")
+    summary = {**headline_summary(metrics, res, launches, wall, card),
+               "loss_burn_first_last": [burn[0], burn[-1]],
+               "loss_multi_first_last": {s: [v[0], v[-1]] for s, v in multi.items()},
+               "loss_untrained": untrained}
+    emit({"phase": "onthefly", "step": "headline", **summary})
+    q = check_quality(metrics, JAX_CPU_ONTHEFLY, "onthefly")
+    emit({"phase": "onthefly", "step": "quality", "card": q,
+          "jax_cpu": JAX_CPU_ONTHEFLY, "tolerance": QUALITY_TOL})
+    resume = kill_and_resume(tmp, "onthefly", base + cli_flags(ONTHEFLY_FLAGS, RESUME))
+    emit({"phase": "onthefly", "step": "resume", **resume})
+    if profile:
+        emit({"phase": "onthefly", "step": "profile", "card": card,
+              **profile_onthefly(data)})
+    return {"headline": summary, "resume": resume}
 
 
 def profile_chunk(chunk, i0, ms_per_step):
@@ -1245,10 +1513,23 @@ def profile_chunk(chunk, i0, ms_per_step):
                      "calls_per_step": c / steps} for us, k, c in rows[:15]]}
 
 
+def protocol_phases(card: str, profile: bool = False) -> tuple[dict, dict]:
+    """The protocol's data directory, written once, then the phases that
+    read it: protocol and onthefly."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = Path(tmp) / "data"
+        t0 = time.perf_counter()
+        info = write_protocol_data(data)
+        emit({"phase": "protocol", "step": "data", **info,
+              "seconds": time.perf_counter() - t0})
+        return (phase_protocol(card, data),
+                phase_onthefly(card, data, profile))
+
+
 def main(argv):
-    # cuBLAS is deterministic under torch.use_deterministic_algorithms only
-    # with a fixed workspace; set before the first product (phase protocol)
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1274,7 +1555,7 @@ def main(argv):
     phase_train_sparse(dev, card, work)
     phase_multitask(dev, card, work)
     eval_launches = phase_eval(trained, card)
-    protocol = phase_protocol(card)
+    protocol, onthefly = protocol_phases(card, "--profile" in argv)
 
     print(card, flush=True)
 
@@ -1298,9 +1579,11 @@ def main(argv):
          "bound_ms": sr_t["bound_ms"], "bound_by": sr_t["bound_by"],
          "library_ms": sr_t["library_ms"]},
     ]
-    # the protocol phase's headline run is a main path of both Adam kernels
+    # the protocol's headline run and the onthefly run are main paths of
+    # both Adam kernels
     for row in kernels:
         row["launches_protocol"] = protocol["headline"]["launches"][row["name"]]
+        row["launches_onthefly"] = onthefly["headline"]["launches"][row["name"]]
     rows_k = kern["fused_adam_table_sorted_rows_sr"]
     rows_t = rows_k["timing"]["bench_3i_batch"]
     kernels.append(
@@ -1312,6 +1595,21 @@ def main(argv):
          "ms": rows_t["ms"], "plain_ms": rows_t["plain_ms"],
          "bound_ms": rows_t["bound_ms"], "bound_by": rows_t["bound_by"],
          "library_ms": rows_t["library_ms"]})
+    sc = kern["scatter_rows"]
+    sc_t = sc["timing"]["bench_3i_batch"]
+    # take_rows' backward: JAX's is XLA's sorted scatter, no Pallas kernel
+    kernels.append(
+        {"name": "scatter_rows", "route": "cuda",
+         "source": "graphqembed_tpu_torch/csrc/grads.cu",
+         "replaces": "graphqembed_tpu/ops/grads.py:46",
+         "launches": launches["scatter_rows"],
+         "launches_protocol": protocol["headline"]["launches"]["scatter_rows"],
+         "launches_onthefly": onthefly["headline"]["launches"]["scatter_rows"],
+         "max_abs_err": sc["max_abs_err"],
+         "ms": sc_t["ms"], "plain_ms": sc_t["plain_ms"],
+         "bound_ms": sc_t["bound_ms"], "bound_by": sc_t["bound_by"],
+         "library_ms": sc_t["library_ms"],
+         "zeros_index_add_ms": sc_t["zeros_index_add_ms"]})
     main_path = {"fused_intersection": eval_launches["fused_intersection"],
                  "gather_normalize": kb["launches"]["gather_normalize"],
                  "sddmm_scores": kb["launches"]["sddmm_scores"]}

@@ -10,9 +10,11 @@ parameters to best/ (for `gqe-torch-eval`).
 
 Runs on the card; --cpu runs on the CPU (every kernel replaced by its plain
 PyTorch version). Without a card and without --cpu it exits non-zero.
-Not ported yet, and refused naming the ROADMAP item: --pipeline stream
-(Queue 1 item 10), --pipeline onthefly (item 8), --depth > 0 (item 9),
---mesh N > 1 (item 11).
+--pipeline onthefly samples every training batch on the device
+(training/device_sampler.py) and reads no training queries from
+--data_dir. Not ported yet, and refused naming the ROADMAP item:
+--pipeline stream (Queue 1 item 10), --depth > 0 (item 9), --mesh N > 1
+(item 11).
 """
 
 from __future__ import annotations
@@ -29,8 +31,6 @@ import torch
 UNPORTED = {
     "stream": "--pipeline stream (the beyond-RAM stream) is not ported yet: "
               "ROADMAP Queue 1 item 10",
-    "onthefly": "--pipeline onthefly (the on-device sampler) is not ported "
-                "yet: ROADMAP Queue 1 item 8",
     "depth": "--depth > 0 (the SAGE encoder) is not ported yet: ROADMAP "
              "Queue 1 item 9",
     "mesh": "--mesh N > 1 (the distributed trainer) is not ported yet: "
@@ -67,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--aggregator", type=str, default="mean",
                    choices=["mean", "pool"])
     p.add_argument("--neighbor_samples", type=int, default=8,
-                   help="sampled neighbors per relation for depth>0")
+                   help="sampled neighbors per relation (depth>0, and the "
+                        "onthefly sampler's hard negatives)")
     p.add_argument("--opt", type=str, default="adam",
                    choices=["adam", "sgd"],
                    help="optimizer: adam (default, the paper's choice) or "
@@ -106,9 +107,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["host", "device", "stream", "onthefly"],
                    help="host: reference-schedule loop (per-formula "
                         "batches). device: device-resident pools, the "
-                        "production driver; both support convergence "
-                        "stopping and checkpoints/--resume. stream and "
-                        "onthefly are not ported yet")
+                        "production driver. onthefly: every batch of all 7 "
+                        "structures sampled on the device, no query pools. "
+                        "All three support convergence stopping and "
+                        "checkpoints/--resume. stream is not ported yet")
     p.add_argument("--ckpt_every", type=int, default=0,
                    help="save full train state every N steps (0 = off)")
     p.add_argument("--resume", action="store_true",
@@ -130,8 +132,11 @@ def dispatch_steps_per(max_iter: int) -> int:
     return max(1, min(100, max_iter // 20))
 
 
-def load_dataset(args):
-    """(graph, train queries, val queries or None)."""
+def load_dataset(args, skip_train: bool = False):
+    """(graph, train queries, val queries or None). skip_train leaves a
+    --data_dir's train queries on disk (--pipeline onthefly needs none);
+    the synthetic path samples them anyway, since val queries come from the
+    same sampler stream."""
     from graphqembed_tpu_torch.config import STRUCTURES
     from graphqembed_tpu_torch.data.loader import import_reference_graph, load_queries
     from graphqembed_tpu_torch.data.sampling import QuerySampler
@@ -155,7 +160,7 @@ def load_dataset(args):
         return graph, train, val
     d = Path(args.data_dir)
     graph = import_reference_graph(d / "graph_data.pkl")
-    train = load_queries(d / "train_queries")
+    train = [] if skip_train else load_queries(d / "train_queries")
     val = load_queries(d / "val_queries") if (d / "val_queries").exists() else None
     return graph, train, val
 
@@ -182,14 +187,14 @@ def main(argv=None):
             "--storage_dtype bfloat16 needs the stochastic-rounding fused "
             "Adam, wired into --pipeline device, stream or onthefly (the "
             "host loop keeps float32 storage)")
-    if args.pipeline in ("stream", "onthefly"):
-        raise SystemExit(UNPORTED[args.pipeline])
+    if args.pipeline == "stream":
+        raise SystemExit(UNPORTED["stream"])
     if args.depth > 0:
         raise SystemExit(UNPORTED["depth"])
     device = _device(args)
 
     n_mesh = args.mesh
-    if n_mesh == 0 and args.pipeline == "device" \
+    if n_mesh == 0 and args.pipeline in ("device", "onthefly") \
             and args.storage_dtype == "float32":
         # the auto rule: all visible devices, shrunk to divide the batch
         n_visible = 1 if device == "cpu" else torch.cuda.device_count()
@@ -240,7 +245,8 @@ def main(argv=None):
     model_dir.mkdir(parents=True, exist_ok=True)
     (model_dir / "config.json").write_text(cfg.to_json())
 
-    graph, train, val = load_dataset(args)
+    graph, train, val = load_dataset(args,
+                                     skip_train=args.pipeline == "onthefly")
     logging.info("dataset: %d nodes, %d edges, %d train / %d val queries",
                  graph.schema.n_nodes, graph.num_edges(), len(train),
                  len(val or []))
@@ -252,16 +258,28 @@ def main(argv=None):
     if args.ckpt_every or args.resume:
         mgr = CheckpointManager(model_dir / "ckpts", keep=3)
     writer = MetricsWriter(model_dir, tensorboard=True)
-    if args.pipeline == "device":
+    log = lambda step, s, l: (  # noqa: E731
+        logging.info("step %d [%s] loss %.4f", step, s, l),
+        writer.write(step, **{f"loss/{s}": l}))[0]
+    if args.pipeline == "onthefly":
+        from graphqembed_tpu_torch.training.device_sampler import (
+            DeviceGraph,
+            run_train_onthefly,
+        )
+        dg = DeviceGraph.build(graph, sample_size=args.neighbor_samples,
+                               seed=cfg.seed, device=device)
+        res = run_train_onthefly(
+            cfg, graph.schema, params, dg, val_queries=val,
+            steps_per=dispatch_steps_per(args.max_iter), optimizer=optimizer,
+            ckpt_manager=mgr, ckpt_every=args.ckpt_every, resume=args.resume,
+            device=device, log=log)
+    elif args.pipeline == "device":
         data = DeviceTrainData(graph.schema, train, device=device)
         res = run_train_device_mega(
             cfg, graph.schema, params, data, val_queries=val,
             steps_per=dispatch_steps_per(args.max_iter), optimizer=optimizer,
             ckpt_manager=mgr, ckpt_every=args.ckpt_every, resume=args.resume,
-            device=device,
-            log=lambda step, s, l: (
-                logging.info("step %d [%s] loss %.4f", step, s, l),
-                writer.write(step, **{f"loss/{s}": l}))[0])
+            device=device, log=log)
     else:
         res = run_train(cfg, graph.schema, params, train, val_queries=val,
                         ckpt_manager=mgr, ckpt_every=args.ckpt_every,

@@ -24,10 +24,12 @@ BUILD_DIR = _PKG.parent / "build"
 # no fused multiply-adds, so its kernels round each operation as the plain
 # PyTorch versions do and agree with them bit for bit. kernels.cu is held to
 # its plain versions with tolerances (its sums run in another order anyway),
-# so it keeps nvcc's contractions.
+# so it keeps nvcc's contractions. grads.cu only adds (nothing to contract)
+# and is held to its plain version bit for bit.
 SOURCES = {
     "gqe_fused_adam": (CSRC / "fused_adam.cu", ("-fmad=false",)),
     "gqe_kernels": (CSRC / "kernels.cu", ()),
+    "gqe_grads": (CSRC / "grads.cu", ()),
 }
 
 # No fast math for any source: IEEE sqrtf and division.

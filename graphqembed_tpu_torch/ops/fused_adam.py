@@ -44,6 +44,7 @@ import torch
 
 from graphqembed_tpu_torch.models.params import tree_paths
 from graphqembed_tpu_torch.ops import cuda_build
+from graphqembed_tpu_torch.ops.grads import scatter_rows_sorted_plain
 
 # Kernel launches since the last reset_launch_counts(), per wrapper.
 LAUNCHES = {"fused_adam_leaf": 0, "fused_adam_leaf_sr": 0,
@@ -252,21 +253,11 @@ def presort_row_ids(ids: torch.Tensor, n: int) -> tuple:
 
 def _rows_grad_plain(n: int, sorted_ids, order, row_grads) -> torch.Tensor:
     """The float32 [n, d] gradient: g[r] = Σ float32(bf16 row) over the
-    sorted entries with id r, added in sorted order, starting from 0. One
-    index_add_ per occurrence rank within a run of equal ids: inside one
-    call every index is distinct, so no two additions meet (CUDA's
-    index_add_ adds with atomics, in no fixed order, where they do)."""
-    d = row_grads.shape[-1]
-    g = torch.zeros(n, d, dtype=torch.float32, device=row_grads.device)
-    if sorted_ids.numel() == 0:
-        return g
-    rows = row_grads.to(torch.bfloat16).float()[order.long()]
-    rank = (torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
-            - torch.searchsorted(sorted_ids, sorted_ids))
-    for k in range(int(rank.max()) + 1):
-        sel = rank == k
-        g.index_add_(0, sorted_ids[sel], rows[sel])
-    return g
+    sorted entries with id r, added in sorted order, starting from 0
+    (ops/grads.py::scatter_rows_sorted_plain, whose index_add_ calls never
+    meet two additions on one row)."""
+    return scatter_rows_sorted_plain(
+        n, sorted_ids, order.long(), row_grads.to(torch.bfloat16).float())
 
 
 def adam_step_rows_sr_plain(p, mu, nu, ids, row_grads, count: int, seed: int,

@@ -1,18 +1,140 @@
 """The two custom gradients of the GQE step, as autograd Functions.
 
 - `take_rows`: a row gather forward; its backward adds the cotangent rows
-  into a zero table in the TABLE's dtype (a bfloat16 table gets a bfloat16
-  gradient, half the bytes of the dense cotangent). `index_add_` does the
-  scatter; the JAX package sorts the ids first only because the TPU's
-  scatter is slow on unsorted rows.
+  into the table gradient in the TABLE's dtype (a bfloat16 table gets a
+  bfloat16 gradient, half the bytes of the dense cotangent), each row's
+  entries in the order of their positions, as the JAX package's sorted
+  scatter does (a stable argsort, then an in-order add): `scatter_rows`.
+  The order of every sum is fixed, so the step gives the same bits in
+  every run (CUDA's `index_add_` adds with float atomics in no fixed
+  order, so a resumed run would drift from an uninterrupted one).
 - `select_dim`: a select along the second-to-last axis forward; its backward
   is the one-hot product dy·onehot(ids), which is exact (each entry is dy or
   0) and needs no scatter.
+
+`scatter_rows` is a hand-written CUDA kernel for Hopper (csrc/grads.cu,
+`gqe_scatter_rows`: each block lists the entries of its tile of rows in
+position order in shared memory, so no sort runs) with its plain PyTorch version
+beside it. The wrapper runs the plain version only for tensors on the CPU;
+for CUDA tensors it launches the kernel (adding one to LAUNCHES[name]) or
+raises.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from graphqembed_tpu_torch.ops import cuda_build
+
+# Kernel launches since the last reset_launch_counts(), per wrapper.
+LAUNCHES = {"scatter_rows": 0}
+
+# scatter_rows' launch constants, as in csrc/grads.cu
+_THREADS = 512       # kThreads
+_ROWS = 256          # kRows: most gradient rows per block
+_SMS = 132           # an H100's SMs: a small table still gets a block on each
+_MIN_ROWS = 32       # fewest rows per block (each block reads every id)
+_PASS = 4096         # kPass: ids each block reads per pass
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def scatter_rows_sorted_plain(n: int, sorted_ids: torch.Tensor,
+                              order: torch.Tensor,
+                              ct: torch.Tensor) -> torch.Tensor:
+    """g [n, d] in ct's dtype from a stable sort of the ids (sorted_ids,
+    order): g[r] = Σ ct[order[j]] over the sorted positions j with
+    sorted_ids[j] == r, added in sorted order starting from 0. One
+    index_add_ per occurrence rank within a run of equal ids: inside one
+    call every index is distinct, so no two additions meet, on the CPU or
+    on the card."""
+    g = torch.zeros((n,) + tuple(ct.shape[1:]), dtype=ct.dtype,
+                    device=ct.device)
+    if sorted_ids.numel() == 0:
+        return g
+    rows = ct[order]
+    rank = (torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
+            - torch.searchsorted(sorted_ids, sorted_ids))
+    for k in range(int(rank.max()) + 1):
+        sel = rank == k
+        g.index_add_(0, sorted_ids[sel], rows[sel])
+    return g
+
+
+def scatter_rows_plain(n: int, ids: torch.Tensor,
+                       ct: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: a stable sort of the ids, then
+    `scatter_rows_sorted_plain`."""
+    sorted_ids, order = torch.sort(ids, stable=True)
+    return scatter_rows_sorted_plain(n, sorted_ids, order, ct)
+
+
+def scatter_launch(n: int, d: int, dtype: torch.dtype, aligned: bool) -> dict:
+    """The kernel's launch for an [n, d] gradient: one block of 512 threads
+    per tile of rows, 256 of them, or n/132 rounded up (at least 32) when
+    that is fewer, so that a small table still spreads over the SMs; each
+    thread owns VEC columns of a row at a time,
+    16 bytes' worth (8 bfloat16, 4 float32) when d is a multiple of that
+    and both buffers are 16-byte aligned, else one; the ids are read in
+    passes of 4,096 (a block sorts its tile's entries of a pass in shared
+    memory, 24 KB, and stages their cotangent rows in batches of 64 KB of
+    dynamic shared memory)."""
+    wide = 16 // torch.empty((), dtype=dtype).element_size()
+    vec = wide if d % wide == 0 and aligned else 1
+    rows = min(_ROWS, max(_MIN_ROWS, -(-n // _SMS)))
+    return {"vec": vec, "threads_per_block": _THREADS, "rows_per_block": rows,
+            "blocks": -(-n // rows), "ids_per_pass": _PASS}
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel's library, built at first use, with its C signature."""
+    lib = cuda_build.load("gqe_grads")
+    if lib.gqe_scatter_rows.argtypes is None:
+        p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.gqe_scatter_rows.argtypes = [p, p, i32, p, i64, i64, i32, i32,
+                                         i32, ctypes.c_uint, p]
+        lib.gqe_scatter_rows.restype = ctypes.c_int
+    return lib
+
+
+def scatter_rows(n: int, ids: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
+    """The table gradient [n, d]: g[r] = the sum of the cotangent rows ct
+    [L, d] (float32 or bfloat16) whose id in ids [L] (int64, any order) is
+    r, added in position order in ct's dtype. Ids must lie in [0, n)."""
+    name = "scatter_rows"
+    if ct.dim() != 2 or ids.shape != (ct.shape[0],):
+        raise ValueError(f"{name}: ct [L, d] and ids [L]")
+    dev = ct.device
+    if ids.device != dev:
+        raise ValueError(f"{name}: tensors on {ids.device} and {dev}")
+    if dev.type == "cpu":
+        return scatter_rows_plain(n, ids, ct)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    if ct.dtype not in _DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
+                        f"{ct.dtype}")
+    if ids.dtype != torch.int64:
+        raise TypeError(f"{name}: the kernel takes int64 ids, got {ids.dtype}")
+    if not (ct.is_contiguous() and ids.is_contiguous()):
+        raise ValueError(f"{name}: tensors must be contiguous")
+    length, d = ct.shape
+    out = torch.empty((n, d), dtype=ct.dtype, device=dev)
+    if n == 0:
+        return out
+    geo = scatter_launch(n, d, ct.dtype,
+                         (out.data_ptr() | ct.data_ptr()) % 16 == 0)
+    cuda_build.launch(LAUNCHES, name, _lib().gqe_scatter_rows,
+                      out.data_ptr(), ct.data_ptr(), _DTYPES[ct.dtype],
+                      ids.data_ptr(), length, n, d, geo["vec"],
+                      geo["rows_per_block"], geo["blocks"], device=dev)
+    return out
 
 
 class _TakeRows(torch.autograd.Function):
@@ -27,15 +149,15 @@ class _TakeRows(torch.autograd.Function):
     def backward(ctx, ct):
         (ids,) = ctx.saved_tensors
         shape = ctx.table_shape
-        g = torch.zeros(shape, dtype=ctx.table_dtype, device=ct.device)
-        flat_ids = ids.reshape(-1)
-        flat_ct = ct.reshape((flat_ids.shape[0],) + tuple(shape[1:]))
-        g.index_add_(0, flat_ids, flat_ct.to(ctx.table_dtype))
-        return g, None
+        flat_ids = ids.reshape(-1).long()
+        flat_ct = ct.reshape(flat_ids.shape[0], -1).to(ctx.table_dtype)
+        g = scatter_rows(shape[0], flat_ids.contiguous(), flat_ct.contiguous())
+        return g.reshape(shape), None
 
 
 def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """table[ids] with a dense backward in the table's dtype."""
+    """table[ids] with a deterministic dense backward in the table's
+    dtype."""
     return _TakeRows.apply(table, ids)
 
 

@@ -309,7 +309,11 @@ def _train_body(cfg: GQEConfig, optimizer: FusedAdamOpt, structure: str,
     1. rows step (`_rows_fast`): gather the rows, differentiate with respect
        to them and the small leaves, and let `FusedAdamOpt.apply_rows` update
        the table from the row gradients: no [N, d] gradient exists;
-    2. one-gather dense step: one table gather, one dense table gradient."""
+    2. one-gather dense step: one table gather, one dense table gradient.
+       A batch may carry a row "mask" (the on-device sampler's validity
+       mask, training/device_sampler.py); masked rows add no loss. The
+       rows step takes no mask: its batches come from the pools, whose
+       rows are all real queries."""
     rows_fast = _rows_fast(cfg, optimizer)
 
     def body(carry, batch):
@@ -327,10 +331,13 @@ def _train_body(cfg: GQEConfig, optimizer: FusedAdamOpt, structure: str,
                 params, g_small, ids, g_rows, opt_state, presorted=presorted)
             return (params, opt_state), loss
         leaves = tree_leaves(params)
+        mask = batch.get("mask")
+        if mask is None:  # pool rows are all real queries
+            mask = torch.ones(b, dtype=torch.bool,
+                              device=batch["targets"].device)
         loss = weight * gqe.margin_loss_rows_onegather(
             cfg, params, structure, batch["anchors"], batch["rels"],
-            batch["inter_modes"], batch["targets"], batch["negs"],
-            torch.ones(b, dtype=torch.bool, device=batch["targets"].device))
+            batch["inter_modes"], batch["targets"], batch["negs"], mask)
         # a leaf the structure does not use (inter/* for chains) gets a zero
         # gradient, and Adam still decays its moments, as in JAX
         grads = _grads_tree(params, torch.autograd.grad(

@@ -1,6 +1,6 @@
 """The port's CLIs (graphqembed_tpu_torch.cli.train and .evaluate) on the
 CPU (--cpu): the JAX CLI's flags, defaults and refusals, the unported
-options refused naming their ROADMAP item, runs of both pipelines on a data
+options refused naming their ROADMAP item, runs of the pipelines on a data
 directory written by the port's loader, SIGKILL and --resume as
 tests/test_fault_injection.py does for the JAX CLI, and gqe-torch-eval
 reproducing metrics.json (same parameters, seed and device: within
@@ -114,9 +114,10 @@ def test_opt_flag(tmp_path, data_dir):
 
 @pytest.mark.parametrize("flags,item", [
     (["--pipeline", "stream"], "Queue 1 item 10"),
-    (["--pipeline", "onthefly"], "Queue 1 item 8"),
     (["--depth", "1"], "Queue 1 item 9"),
+    (["--pipeline", "onthefly", "--depth", "1"], "Queue 1 item 9"),
     (["--mesh", "2", "--pipeline", "device"], "Queue 1 item 11"),
+    (["--mesh", "2", "--pipeline", "onthefly"], "Queue 1 item 11"),
     (["--mesh", "4", "--pipeline", "host"], "Queue 1 item 11"),
 ])
 def test_unported_options_exit_naming_their_roadmap_item(tmp_path, flags, item):
@@ -136,7 +137,7 @@ def _cmd(model_dir, data_dir, pipeline, extra=()):
             "--pipeline", pipeline, *extra]
 
 
-@pytest.mark.parametrize("pipeline", ["host", "device"])
+@pytest.mark.parametrize("pipeline", ["host", "device", "onthefly"])
 def test_kill_and_resume(data_dir, tmp_path, pipeline):
     """SIGKILL the CLI once a checkpoint's meta.json exists, rerun it with
     --resume: it completes from the checkpoint, not from scratch."""
@@ -167,9 +168,30 @@ def test_kill_and_resume(data_dir, tmp_path, pipeline):
     metrics = json.loads((model_dir / "metrics.json").read_text())
     assert metrics["steps"] >= 300
     assert len(list(ckpt_root.glob("step_*"))) <= 3
-    if pipeline == "device":
+    if pipeline != "host":
         # this session's steps only: the steps after the restored checkpoint
         assert metrics["timings"]["session_steps"] == metrics["steps"] - before[-1]
+
+
+def test_onthefly_pipeline_writes_metrics(tmp_path, data_dir):
+    """--pipeline onthefly samples every batch on the device (here the
+    CPU): no training queries are read, all 7 structures train, and the
+    run writes metrics.json and the best parameters."""
+    md = tmp_path / "run"
+    rc = main(["--data_dir", str(data_dir), *SMALL, "--max_iter", "280",
+               "--max_burn_in", "70", "--val_every", "100", "--pipeline",
+               "onthefly", "--bf16", "--neighbor_samples", "4", "--tol=-1e9",
+               "--model_dir", str(md)])
+    assert rc == 0
+    metrics = json.loads((md / "metrics.json").read_text())
+    assert metrics["steps"] == 280 and metrics["burn_in_steps"] == 70
+    assert metrics["timings"]["session_steps"] == 280
+    assert {"final_auc", "final_auc_hard", "final_apr"} <= set(metrics)
+    assert set(metrics["final_auc"]) == set(STRUCTURES) | {"macro"}
+    assert (md / "best" / "meta.json").exists()
+    logged = {k for line in (md / "metrics.jsonl").read_text().splitlines()
+              for k in json.loads(line) if k.startswith("loss/")}
+    assert logged == {f"loss/{s}" for s in STRUCTURES}
 
 
 def test_eval_cli_reproduces_metrics_json(tmp_path, data_dir, capsys):
