@@ -21,8 +21,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              version and against the dense SR kernel fed the same gradient,
              timed beside the dense route it replaces; take_rows' backward
              (scatter_rows) at [35200,128] bf16 from a bench 3i batch's
-             2,560 ids and seven more inputs, bit for bit against its plain
-             version, timed beside index_add_
+             2,560 ids and thirteen more inputs, bit for bit against its
+             plain version, timed on four of them beside index_add_
   kernel_bench
              fused_intersection against its plain version at [3,1024,128],
              [2,1024,128] (eval's batches), [3,4096,128] (the JAX bench's),
@@ -308,39 +308,63 @@ def phase_kernels(dev, work: dict):
 def check_scatter_kernel(dev, work: dict, gen):
     """scatter_rows (take_rows' backward) at the dense step's shape, the
     bf16 [35200,128] table gradient from a bench 3i batch's L = 2,560 ids,
-    and on seven more inputs: the same ids in float32, uniform ids, all ids
-    in 64 rows, 9,000 ids (three of the kernel's 4,096-id passes), an odd
-    width (d = 36, one column per thread), a misaligned cotangent and the
-    protocol's 1,760-row table (32-row tiles).
+    and on thirteen more inputs: the same ids in float32, a bench 2p batch
+    (L = 1,536), uniform ids, all ids in 64 rows, all 2,560 ids on one row,
+    all ids in one cluster's rows, ids on the first and last row of every
+    tile, no ids, 9,000 ids (three of the kernel's 3,072-id passes), an odd
+    width (d = 36, one column per thread), a misaligned cotangent, the
+    protocol's 1,760-row table (16-row tiles) and a 5,000-row table whose
+    132 tiles are not a whole number of 8-CTA clusters.
     Tolerance: bit-exact against the plain version on the card (the same
-    position-order sum, each sum rounded to the dtype). Timed beside zeros +
-    index_add_, the route it replaces, and index_add_ alone (the library
-    yardstick)."""
+    position-order sum, each sum rounded to the dtype). The bench 3i batch
+    (bf16 and float32), the 2p batch and the 1,760-row table are timed,
+    each with its bound, beside zeros + index_add_ (the PyTorch route for
+    the same function: Adam needs a fresh gradient every step) and
+    index_add_ alone (the library yardstick)."""
     import torch
 
+    from graphqembed_tpu_torch.experiments.kernel_bench import scatter_cost
     from graphqembed_tpu_torch.ops import grads
     from graphqembed_tpu_torch.training.device_data import _batch_ids, _select_batches
 
     n, d = 35200, 128
-    batch = _select_batches(work["cfg"], torch.Generator(device=dev).manual_seed(5),
-                            1, work["data"].pools["3i"], True)
-    bench_ids = _batch_ids(batch)[0].reshape(-1).contiguous()
+
+    def batch_ids(structure):
+        batch = _select_batches(work["cfg"], torch.Generator(device=dev).manual_seed(5),
+                                1, work["data"].pools[structure], True)
+        return _batch_ids(batch)[0].reshape(-1).contiguous()
+
+    bench_ids, ids_2p = batch_ids("3i"), batch_ids("2p")
     length = bench_ids.numel()
     check(length == 2560, f"{length} ids in a 3i batch")
+    check(ids_2p.numel() == 1536, f"{ids_2p.numel()} ids in a 2p batch")
+    geo = grads.scatter_launch(n, d, torch.bfloat16, True)
+    tile, span = geo["rows_per_block"], geo["rows_per_block"] * geo["cluster"]
+    edges = torch.tensor([r for t in range(0, n, tile) for r in (t, min(t + tile, n) - 1)])
     hub = torch.randperm(n, generator=gen)[:64]
+
+    def draw(high, count=length, low=0):
+        return torch.randint(low, high, (count,), generator=gen).to(dev)
+
     cases = {
         "bench_3i_batch": (n, bench_ids, d, torch.bfloat16, 0),
         "bench_3i_batch_f32": (n, bench_ids, d, torch.float32, 0),
-        "uniform": (n, torch.randint(0, n, (length,), generator=gen).to(dev), d,
-                    torch.bfloat16, 0),
-        "skewed_64_rows": (n, hub[torch.randint(0, 64, (length,), generator=gen)].to(dev),
-                           d, torch.bfloat16, 0),
-        "three_passes": (n, torch.randint(0, n, (9000,), generator=gen).to(dev), d,
-                         torch.bfloat16, 0),
+        "bench_2p_batch": (n, ids_2p, d, torch.bfloat16, 0),
+        "uniform": (n, draw(n), d, torch.bfloat16, 0),
+        "skewed_64_rows": (n, hub[draw(64).cpu()].to(dev), d, torch.bfloat16, 0),
+        "one_row": (n, torch.full((length,), 12345, device=dev), d, torch.bfloat16, 0),
+        "one_cluster": (n, draw(4 * span + span, low=4 * span), d, torch.bfloat16, 0),
+        "tile_edges": (n, edges[draw(edges.numel()).cpu()].to(dev), d, torch.bfloat16, 0),
+        "no_ids": (n, torch.zeros(0, dtype=torch.int64, device=dev), d, torch.bfloat16, 0),
+        "three_passes": (n, draw(n, 9000), d, torch.bfloat16, 0),
         "odd_width_36": (n, bench_ids, 36, torch.bfloat16, 0),
         "misaligned": (n, bench_ids, d, torch.bfloat16, 1),
         "table_1760": (1760, bench_ids % 1760, d, torch.bfloat16, 0),
+        "table_5000": (5000, torch.cat([draw(5000, length - 1),
+                                        torch.tensor([4999], device=dev)]),
+                       d, torch.bfloat16, 0),
     }
+    timed = ("bench_3i_batch", "bench_3i_batch_f32", "bench_2p_batch", "table_1760")
     rows = []
     for name, (n, ids, width, dtype, shift) in cases.items():
         count = ids.numel()
@@ -355,11 +379,11 @@ def check_scatter_kernel(dev, work: dict, gen):
         check(exact, f"scatter_rows differs from plain on {name}")
         row = {"ids": name, "shape": [n, width], "length": count, "dtype": str(dtype),
                "distinct_rows": int(torch.unique(ids).numel()),
-               "max_run": int(torch.bincount(ids).max()), "bit_exact": exact,
-               "max_abs_err": err}
-        if name in ("bench_3i_batch", "bench_3i_batch_f32"):
-            n_bytes = (n + count) * width * ct.element_size() + 8 * count
-            b_ms, b_by = bound(n_bytes, count * width)
+               "max_run": int(torch.bincount(ids).max()) if count else 0,
+               "bit_exact": exact, "max_abs_err": err}
+        if name in timed:
+            n_bytes, n_ops = scatter_cost(n, count, width, ct.element_size())
+            b_ms, b_by = bound(n_bytes, n_ops)
             g = torch.zeros((n, width), dtype=dtype, device=dev)
 
             def old_route():
@@ -1609,7 +1633,11 @@ def main(argv):
          "ms": sc_t["ms"], "plain_ms": sc_t["plain_ms"],
          "bound_ms": sc_t["bound_ms"], "bound_by": sc_t["bound_by"],
          "library_ms": sc_t["library_ms"],
-         "zeros_index_add_ms": sc_t["zeros_index_add_ms"]})
+         "zeros_index_add_ms": sc_t["zeros_index_add_ms"],
+         **{f"{k}_{key}": sc["timing"][name][k]
+            for key, name in (("f32", "bench_3i_batch_f32"), ("2p", "bench_2p_batch"),
+                              ("1760", "table_1760"))
+            for k in ("ms", "bound_ms", "library_ms", "zeros_index_add_ms")}})
     main_path = {"fused_intersection": eval_launches["fused_intersection"],
                  "gather_normalize": kb["launches"]["gather_normalize"],
                  "sddmm_scores": kb["launches"]["sddmm_scores"]}

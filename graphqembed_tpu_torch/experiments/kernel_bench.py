@@ -1,6 +1,7 @@
 """Kernel bench of ops/kernels.py on the card: each hand-written kernel
 against its plain PyTorch version (and a library call where one exists),
-at the JAX package's `experiments/kernel_bench.py` shapes and numpy seeds.
+at the JAX package's `experiments/kernel_bench.py` shapes and numpy seeds;
+and, on request, ops/grads.py's scatter_rows alone (below).
 
     python -m graphqembed_tpu_torch.experiments.kernel_bench   # needs a card
 
@@ -26,6 +27,21 @@ and at the JAX bench's [3,4096,128], each with min and mean.
 
     python -m graphqembed_tpu_torch.experiments.kernel_bench intersection
                                 # the intersection benches alone
+    python -m graphqembed_tpu_torch.experiments.kernel_bench scatter
+                                # take_rows' backward alone
+
+The scatter bench times `ops/grads.py::scatter_rows` alone (device time,
+beside its bound) at the train paths' four inputs: one 3i batch (L = 2,560
+ids) and one 2p batch (L = 1,536) of chip_smoke.py's bench workload on the
+bfloat16 [35200, 128] gradient, the 3i batch in float32, and its ids mod
+1,760 on the protocol's [1760, 128] table; cotangents normal * 0.01 from
+torch seed 0. It prints the entries in the busiest tile of rows, the
+SHA-256 of each gradient's bytes, and calls nothing but the public wrapper
+and its launch geometry, so that a copy of this file run in a
+checkout of an earlier commit times that commit's kernel on the same
+inputs: run it in both trees in turns (parent, change, change, parent) and
+compare the digests for bit equality. chip_smoke.py times the same inputs
+beside the PyTorch routes for the same function.
 
 This module is the only caller of `gather_normalize` and `sddmm_scores`,
 as the JAX bench is in the JAX package.
@@ -33,6 +49,7 @@ as the JAX bench is in the JAX package.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import statistics
 import sys
@@ -95,6 +112,12 @@ def intersection_cost(k: int, b: int, d: int) -> tuple[int, int]:
     """(bytes, operations) of fused_intersection: read zs, pre and post,
     write [B, d]; k pre-products and one post-product of [B,d]@[d,d]."""
     return (k + 1) * b * d * 4 + 2 * d * d * 4, 2 * b * d * d * (k + 1)
+
+
+def scatter_cost(n: int, length: int, d: int, itemsize: int) -> tuple[int, int]:
+    """take_rows' backward: the [n, d] gradient written once, the [L, d]
+    cotangent and the L int64 ids read once; L*d adds."""
+    return (n + length) * d * itemsize + 8 * length, length * d
 
 
 def lcg_chain(ids: np.ndarray, n_rows: int, n_sets: int) -> list[np.ndarray]:
@@ -255,9 +278,65 @@ def bench_intersections(device=None) -> list[dict]:
             for k, b, d in INTERSECTION_SHAPES for kind in ("min", "mean")]
 
 
+def scatter_inputs(dev) -> dict:
+    """Flat ids [B·(A+2)] of one 3i and one 2p batch of the bench workload
+    (bio-synth at scale 40, 1,500 queries of each, B = 512)."""
+    from graphqembed_tpu_torch.config import GQEConfig
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+    from graphqembed_tpu_torch.training.device_data import (
+        DeviceTrainData, _batch_ids, _select_batches)
+
+    graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    cfg = GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
+                    batch_size=512, lr=0.01, compute_dtype="bfloat16",
+                    storage_dtype="bfloat16")
+    sampler = QuerySampler(graph, np.random.default_rng(0), max_negs=30)
+    data = DeviceTrainData(graph.schema, sampler.sample_many("2p", 1500)
+                           + sampler.sample_many("3i", 1500), device=dev)
+    out = {}
+    for s in ("3i", "2p"):
+        batch = _select_batches(cfg, torch.Generator(device=dev).manual_seed(5), 1,
+                                data.pools[s], True)
+        out[s] = _batch_ids(batch)[0].reshape(-1).contiguous()
+    return out
+
+
+def bench_scatter(device=None) -> list[dict]:
+    """scatter_rows at the four inputs of the module docstring."""
+    from graphqembed_tpu_torch.ops import grads
+
+    dev = _card(device)
+    ids = scatter_inputs(dev)
+    gen = torch.Generator().manual_seed(0)
+    out = []
+    for name, n, idx, dtype in (("bench_3i", 35200, ids["3i"], torch.bfloat16),
+                                ("bench_3i_f32", 35200, ids["3i"], torch.float32),
+                                ("bench_2p", 35200, ids["2p"], torch.bfloat16),
+                                ("table_1760", 1760, ids["3i"] % 1760, torch.bfloat16)):
+        length, d = idx.numel(), 128
+        ct = (torch.randn(length * d, generator=gen) * 0.01).to(dev, dtype).view(length, d)
+        g = grads.scatter_rows(n, idx, ct)
+        torch.cuda.synchronize()
+        cost = scatter_cost(n, length, d, ct.element_size())
+        b_us, b_by = bound_us(*cost)
+        rows = grads.scatter_launch(n, d, dtype, True)["rows_per_block"]
+        out.append({"kernel": "scatter_rows", "input": name, "shape": [n, d],
+                    "length": length, "dtype": str(dtype), "rows_per_tile": rows,
+                    "busiest_tile": int(torch.bincount(idx // rows).max()),
+                    "sha256": hashlib.sha256(g.cpu().view(torch.uint8).numpy()).hexdigest(),
+                    "us": device_us(lambda i: grads.scatter_rows(n, idx, ct)),
+                    "bytes": cost[0], "bound_us": b_us, "bound_by": b_by})
+    return out
+
+
 def main(argv=()):
     torch.backends.cuda.matmul.allow_tf32 = False
     print(json.dumps({"card": torch.cuda.get_device_name(0)}), flush=True)
+    if "scatter" in argv:
+        for r in bench_scatter():
+            print(json.dumps(r), flush=True)
+        return
     if "intersection" not in argv:
         for fn in (bench_gather, bench_sddmm):
             print(json.dumps(fn()), flush=True)

@@ -13,9 +13,12 @@
   0) and needs no scatter.
 
 `scatter_rows` is a hand-written CUDA kernel for Hopper (csrc/grads.cu,
-`gqe_scatter_rows`: each block lists the entries of its tile of rows in
-position order in shared memory, so no sort runs) with its plain PyTorch version
-beside it. The wrapper runs the plain version only for tensors on the CPU;
+`gqe_scatter_rows`: clusters of 8 CTAs read the ids once and push each to
+the CTA that owns its row; each CTA ranks its tile's entries by row in
+shared memory, then writes zeros over the rows that no id names with
+16-byte stores from all its threads, so that each byte of g is written
+once, and sums each run in order; no global sort runs) with its plain
+PyTorch version beside it. The wrapper runs the plain version only for tensors on the CPU;
 for CUDA tensors it launches the kernel (adding one to LAUNCHES[name]) or
 raises.
 """
@@ -23,6 +26,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -32,11 +36,13 @@ from graphqembed_tpu_torch.ops import cuda_build
 LAUNCHES = {"scatter_rows": 0}
 
 # scatter_rows' launch constants, as in csrc/grads.cu
-_THREADS = 512       # kThreads
-_ROWS = 256          # kRows: most gradient rows per block
-_SMS = 132           # an H100's SMs: a small table still gets a block on each
-_MIN_ROWS = 32       # fewest rows per block (each block reads every id)
-_PASS = 4096         # kPass: ids each block reads per pass
+_THREADS = 256       # kThreads
+_CLUSTER = 8         # kCluster: CTAs per cluster, which read the ids once
+_ROWS = 128          # kMaxRows: most gradient rows per CTA
+_SMS = 132           # an H100's SMs: a small table still spreads over them
+_MIN_ROWS = 16       # fewest rows per CTA
+_PASS = 3072         # kPass: ids a cluster reads per pass
+_STAGE = 51200       # kStage: bytes of staged cotangent rows per CTA
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -76,20 +82,28 @@ def scatter_rows_plain(n: int, ids: torch.Tensor,
 
 
 def scatter_launch(n: int, d: int, dtype: torch.dtype, aligned: bool) -> dict:
-    """The kernel's launch for an [n, d] gradient: one block of 512 threads
-    per tile of rows, 256 of them, or n/132 rounded up (at least 32) when
-    that is fewer, so that a small table still spreads over the SMs; each
-    thread owns VEC columns of a row at a time,
-    16 bytes' worth (8 bfloat16, 4 float32) when d is a multiple of that
-    and both buffers are 16-byte aligned, else one; the ids are read in
-    passes of 4,096 (a block sorts its tile's entries of a pass in shared
-    memory, 24 KB, and stages their cotangent rows in batches of 64 KB of
-    dynamic shared memory)."""
-    wide = 16 // torch.empty((), dtype=dtype).element_size()
+    """The kernel's launch for an [n, d] gradient: one CTA of 256 threads
+    per tile of rows, 128 of them (64 for float32, whose rows take twice the
+    stage), or n/132 rounded up (at least 16) when that is fewer, so that a
+    small table still spreads over the SMs; the
+    CTAs in clusters of 8 consecutive tiles, the grid padded with empty
+    tiles to a whole cluster; each thread owns VEC columns of a row at a
+    time, 16 bytes' worth (8 bfloat16, 4 float32) when d is a multiple of
+    that and both buffers are 16-byte aligned, else one; the ids are read
+    in passes of 3,072 per cluster, 384 by each CTA, and each CTA stages its
+    entries' cotangent rows in 50 KB of shared memory, so a row of more than
+    50 KB is refused."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if d * size > _STAGE:
+        raise ValueError(f"scatter_rows: a row of {d} x {size} bytes exceeds "
+                         f"the kernel's {_STAGE}-byte stage")
+    wide = 16 // size
     vec = wide if d % wide == 0 and aligned else 1
-    rows = min(_ROWS, max(_MIN_ROWS, -(-n // _SMS)))
+    rows = min(_ROWS if size == 2 else _ROWS // 2, max(_MIN_ROWS, -(-n // _SMS)))
+    tiles = -(-n // rows)
     return {"vec": vec, "threads_per_block": _THREADS, "rows_per_block": rows,
-            "blocks": -(-n // rows), "ids_per_pass": _PASS}
+            "cluster": _CLUSTER, "blocks": -(-tiles // _CLUSTER) * _CLUSTER,
+            "ids_per_pass": _PASS}
 
 
 def _lib() -> ctypes.CDLL:
@@ -150,7 +164,8 @@ class _TakeRows(torch.autograd.Function):
         (ids,) = ctx.saved_tensors
         shape = ctx.table_shape
         flat_ids = ids.reshape(-1).long()
-        flat_ct = ct.reshape(flat_ids.shape[0], -1).to(ctx.table_dtype)
+        width = math.prod(shape[1:])  # stated: -1 is ambiguous with no ids
+        flat_ct = ct.reshape(flat_ids.shape[0], width).to(ctx.table_dtype)
         g = scatter_rows(shape[0], flat_ids.contiguous(), flat_ct.contiguous())
         return g.reshape(shape), None
 

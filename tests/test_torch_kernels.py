@@ -265,6 +265,7 @@ def test_kernel_bench_id_chain_is_the_jax_benchs_lcg():
 def test_kernel_bench_needs_a_card():
     from graphqembed_tpu_torch.experiments import kernel_bench as kb
 
-    for bench in (kb.bench_gather, kb.bench_sddmm, kb.bench_intersection):
+    for bench in (kb.bench_gather, kb.bench_sddmm, kb.bench_intersection,
+                  kb.bench_scatter):
         with pytest.raises(RuntimeError):
             bench(device="cpu")

@@ -96,31 +96,84 @@ def test_scatter_refuses_mismatched_shapes():
 
 
 @pytest.mark.parametrize("n,d,dtype,aligned,vec,rows,blocks", [
-    (35200, 128, torch.bfloat16, True, 8, 256, 138),  # the bench table
-    (35200, 128, torch.float32, True, 4, 256, 138),
-    (1760, 128, torch.bfloat16, True, 8, 32, 55),     # the protocol table
-    (8000, 128, torch.bfloat16, True, 8, 61, 132),    # n / 132 rounded up
-    (100, 32, torch.float32, True, 4, 32, 4),
-    (100, 12, torch.bfloat16, True, 1, 32, 4),        # d % 8 != 0
-    (100, 12, torch.float32, True, 4, 32, 4),
-    (600, 32, torch.bfloat16, False, 1, 32, 19),      # misaligned buffers
-    (33792, 8, torch.float32, True, 4, 256, 132),
-    (33793, 8, torch.float32, True, 4, 256, 133),
+    (35200, 128, torch.bfloat16, True, 8, 128, 280),  # the bench table
+    (35200, 128, torch.float32, True, 4, 64, 552),    # float32: 64-row tiles
+    (35200, 36, torch.bfloat16, True, 1, 128, 280),   # odd width: d % 8 != 0
+    (1760, 128, torch.bfloat16, True, 8, 16, 112),    # the protocol table
+    (8000, 128, torch.bfloat16, True, 8, 61, 136),    # n / 132 rounded up
+    (5000, 128, torch.bfloat16, True, 8, 38, 136),    # 132 tiles, not 8k
+    (100, 32, torch.float32, True, 4, 16, 8),         # one padded cluster
+    (100, 12, torch.bfloat16, True, 1, 16, 8),        # d % 8 != 0
+    (100, 12, torch.float32, True, 4, 16, 8),
+    (600, 32, torch.bfloat16, False, 1, 16, 40),      # misaligned buffers
+    (33792, 8, torch.float32, True, 4, 64, 528),      # 528 tiles: 66 clusters
+    (33793, 8, torch.float32, True, 4, 64, 536),      # one row more: a 67th
+    (33792, 8, torch.bfloat16, True, 8, 128, 264),    # 264 tiles: 33 clusters
+    (33793, 8, torch.bfloat16, True, 8, 128, 272),    # one row more: a 34th
 ])
 def test_scatter_launch_geometry(n, d, dtype, aligned, vec, rows, blocks):
-    """Tiles of up to 256 rows, fewer (n/132, at least 32) for a small
-    table; 16-byte columns where they fit; the blocks cover the rows exactly
+    """Tiles of up to 128 rows (64 for float32), fewer (n/132, at least
+    16) for a small table; 16-byte columns where they fit; CTAs in clusters of 8, the grid
+    padded with empty tiles to a whole cluster and no further
     (csrc/grads.cu refuses any other grid)."""
     geo = grads.scatter_launch(n, d, dtype, aligned)
-    assert geo == {"vec": vec, "threads_per_block": 512, "rows_per_block": rows,
-                   "blocks": blocks, "ids_per_pass": 4096}
-    assert d % geo["vec"] == 0 and 1 <= rows <= 256
-    assert (blocks - 1) * rows < n <= blocks * rows
+    assert geo == {"vec": vec, "threads_per_block": 256, "rows_per_block": rows,
+                   "cluster": 8, "blocks": blocks, "ids_per_pass": 3072}
+    assert d % geo["vec"] == 0 and 1 <= rows <= (128 if dtype == torch.bfloat16 else 64)
+    assert blocks % 8 == 0 and (blocks - 8) * rows < n <= blocks * rows
 
 
-@pytest.mark.parametrize("length", [0, 1, 4095, 4096, 4097, 9000])
+@pytest.mark.parametrize("d,dtype,ok", [
+    (25600, torch.bfloat16, True),    # 50 KB: one row fills the stage
+    (25608, torch.bfloat16, False),
+    (12800, torch.float32, True),
+    (12804, torch.float32, False),
+])
+def test_scatter_launch_refuses_rows_wider_than_the_stage(d, dtype, ok):
+    """Each CTA stages whole cotangent rows in 50 KB of shared memory."""
+    if ok:
+        assert grads.scatter_launch(1000, d, dtype, True)["vec"] in (4, 8)
+    else:
+        with pytest.raises(ValueError, match="stage"):
+            grads.scatter_launch(1000, d, dtype, True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["one_run_of_2560", "no_ids_bench_width"])
+def test_take_rows_backward_edge_inputs_equal_jax_vjp(dtype, case):
+    """Two of the kernel's edge inputs (chip_smoke.py holds the kernel to
+    the plain version on them): all 2,560 ids of a batch on one row, one
+    run the length of the batch; and no ids at the bench width (d = 128),
+    a gradient of zeros. The plain version equals the JAX VJP bit for
+    bit."""
+    rng = np.random.default_rng(7)
+    n, d = (50, 16) if case == "one_run_of_2560" else (35200, 128)
+    length = 2560 if case == "one_run_of_2560" else 0
+    ids = np.full(length, 37, np.int64)
+    ct = rng.normal(size=(length, d)).astype(np.float32)
+    table = np.zeros((n, d), np.float32)
+
+    jt = jnp.asarray(table).astype(dtype)
+    _, vjp = jax.vjp(lambda t: jgrads.take_rows(t, jnp.asarray(ids, jnp.int32)), jt)
+    (g_j,) = vjp(jnp.asarray(ct).astype(dtype))
+
+    tt = torch.from_numpy(table).to(getattr(torch, dtype)).requires_grad_(True)
+    y = grads.take_rows(tt, torch.from_numpy(ids))
+    (g_t,) = torch.autograd.grad(y, tt, torch.from_numpy(ct).to(tt.dtype))
+
+    got = g_t.view(torch.int16).numpy().view(np.uint16) if dtype == "bfloat16" \
+        else g_t.numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(np.asarray(g_j)))
+    if length == 0:
+        assert not g_t.any()
+    else:
+        assert g_t[37].abs().sum() > 0 and not g_t[:37].any()
+
+
+@pytest.mark.parametrize("length", [0, 1, 3071, 3072, 3073, 4095, 4096, 4097, 9000])
 def test_plain_scatter_across_the_kernels_passes(length):
-    """Lengths on both sides of the kernel's 4,096-id pass (chip_smoke.py
+    """Lengths on both sides of the kernel's 3,072-id pass and of 4,096
+    (chip_smoke.py
     holds the kernel to the plain version at 9,000 ids): the plain version
     equals a float32 numpy sum of each row's entries in position order."""
     rng = np.random.default_rng(length)
@@ -132,3 +185,22 @@ def test_plain_scatter_across_the_kernels_passes(length):
     for j in range(length):
         want[int(ids[j])] += ct[j].numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,length,itemsize,bound", [
+    (35200, 2560, 2, 2.8917),  # the bench 3i batch, bfloat16
+    (35200, 2560, 4, 5.7772),  # the same in float32
+    (35200, 1536, 2, 2.8110),  # the bench 2p batch
+    (1760, 2560, 2, 0.3362),   # the protocol and onthefly table
+])
+def test_scatter_bounds_at_the_train_paths_inputs(n, length, itemsize, bound):
+    """kernel_bench.scatter_cost, which chip_smoke.py and the scatter bench
+    price the kernel by: the gradient written once, the cotangent and the
+    int64 ids read once, over 3.35 TB/s; bound by bytes."""
+    from graphqembed_tpu_torch.experiments import kernel_bench as kb
+
+    n_bytes, n_ops = kb.scatter_cost(n, length, 128, itemsize)
+    assert n_bytes == (n + length) * 128 * itemsize + 8 * length
+    assert n_ops == length * 128
+    us, by = kb.bound_us(n_bytes, n_ops)
+    assert by == "bytes" and abs(us - bound) < 1e-4
