@@ -81,6 +81,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
              steps, val macro AUC and APR against the JAX CPU reference;
              SIGKILL and --resume through the plain CLI, bit for bit (2,000
              steps)
+  sampler    the native C++ sampler (native/sampler.cpp) built with g++; the
+             oracle bar's data of both families (bio, bio-latent: 8,000 +
+             400 queries per structure, parallel_sample native on 8
+             threads) held to their recorded SHA-256; parallel_sample timed
+             over the protocol cell's 35,000 queries beside the Python
+             sampler's time for them (protocol's data step); pools built
+             from the sampler's arrays (device_pool_from_arrays,
+             DeviceTrainData.from_pools) equal on the card to DevicePool
+             from the same queries
+  oracle_parity
+             the oracle-parity bar (experiments/oracle_parity.py) for bio
+             and bio-latent: fused_adam_leaf and scatter_rows bit-exact at
+             its float32 [1760,128] table; the init's SHA-256 against the
+             recorded one; the host loop (12,000 float32 steps, 3,000 of
+             burn-in, d=128, B=512, bilinear/min) with exact launches,
+             finite parameters, falling losses; macro AUC and APR within
+             0.01 of JAX CPU's on the same data from the same init, and of
+             the float64 oracle's wherever JAX CPU is
 Then the card's name and power limit, the {"kernels": [...]} line, and the
 last line {"ok": true, "device": {...}}.
 """
@@ -106,20 +124,16 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def _count_modules():
-    from graphqembed_tpu_torch.ops import fused_adam, grads, kernels
-    return fused_adam, grads, kernels
-
-
 def reset_counts():
     """Every kernel wrapper's launch count to 0."""
-    for m in _count_modules():
-        m.reset_launch_counts()
+    from graphqembed_tpu_torch import ops
+    ops.reset_launch_counts()
 
 
 def read_counts() -> dict:
     """Launches of every kernel wrapper since the last reset_counts()."""
-    return {k: v for m in _count_modules() for k, v in m.LAUNCHES.items()}
+    from graphqembed_tpu_torch import ops
+    return ops.launch_counts()
 
 
 def want_counts(**launched) -> dict:
@@ -1097,16 +1111,19 @@ def write_protocol_data(path):
     check(graph.schema.n_nodes == 1760, f"{graph.schema.n_nodes} nodes, want 1760")
     sampler = QuerySampler(graph, np.random.default_rng(0), max_negs=50)
     train, val = [], []
+    t0 = time.perf_counter()
     for st in STRUCTURES:
         qs = sampler.sample_many(st, PROTOCOL_N_TRAIN + PROTOCOL_N_VAL)
         train += qs[:PROTOCOL_N_TRAIN]
         val += qs[PROTOCOL_N_TRAIN:]
+    python_sample_s = time.perf_counter() - t0
     path.mkdir(parents=True)
     export_reference_pickle(graph, path / "graph_data.pkl")
     save_queries(path / "train_queries", graph.schema, train)
     save_queries(path / "val_queries", graph.schema, val)
     return {"nodes": graph.schema.n_nodes, "edges": graph.num_edges(),
-            "n_train": len(train), "n_val": len(val)}
+            "n_train": len(train), "n_val": len(val),
+            "python_sample_s": python_sample_s}
 
 
 def run_cli(main_fn, argv, module=None, name=None):
@@ -1537,9 +1554,10 @@ def profile_chunk(chunk, i0, ms_per_step):
                      "calls_per_step": c / steps} for us, k, c in rows[:15]]}
 
 
-def protocol_phases(card: str, profile: bool = False) -> tuple[dict, dict]:
+def protocol_phases(card: str, profile: bool = False) -> tuple[dict, dict, dict]:
     """The protocol's data directory, written once, then the phases that
-    read it: protocol and onthefly."""
+    read it: protocol and onthefly. Returns their results and the data's
+    summary (with the Python sampler's seconds)."""
     import tempfile
     from pathlib import Path
 
@@ -1550,7 +1568,314 @@ def protocol_phases(card: str, profile: bool = False) -> tuple[dict, dict]:
         emit({"phase": "protocol", "step": "data", **info,
               "seconds": time.perf_counter() - t0})
         return (phase_protocol(card, data),
-                phase_onthefly(card, data, profile))
+                phase_onthefly(card, data, profile), info)
+
+
+# The oracle-parity bar (graphqembed_tpu_torch/experiments/oracle_parity.py
+# at its defaults: per family 8,000 train + 400 val queries per structure
+# from the native sampler, 12,000 float32 steps of the host loop from the
+# port's init on a CPU generator seeded 0). Its references, computed on a
+# CPU with
+#   python tests/test_torch_oracle_parity.py --reference <family>
+# from the JAX package's parallel_sample data and the port's init carried
+# across as numpy: the digests of the data and the init, the float64
+# PyTorch oracle's and JAX run_train's (JAX_PLATFORMS=cpu) val AUC, APR and
+# hard AUC of the best parameters, and JAX's per-structure loss windows
+# (mean of the first and of the last 100 losses).
+ORACLE_BAR = {
+    "bio": {
+        "n_queries": 56162,
+        "data_sha256": "64717c7ae4e1e3db6a48ddcc52e8bab666f9dabf911bc8b24ed5891210e43c5b",
+        "init_sha256": "cb1f4f9d415d0dc0e1fe8ec8cc27e912119f87d780a4a4bb77956ba127d84d03",
+        "oracle": {
+            "auc": {"1p": 0.6603321608913599, "2i": 0.8595456045623885,
+                    "2p": 0.651316173304088, "3i": 0.8693691480303322,
+                    "3p": 0.7359547882672879, "ip": 0.7069287960902411,
+                    "pi": 0.7943098082473083, "macro": 0.753965211341858},
+            "apr": {"1p": 0.6603, "2i": 0.8557000000000001, "2p": 0.6409090376999554,
+                    "3i": 0.8653, "3p": 0.7206526873960624, "ip": 0.7138682247088255,
+                    "pi": 0.7957, "macro": 0.7503471356864061},
+            "hard_auc": {"2i": 0.7093750334604225, "3i": 0.7612801274018381,
+                         "ip": 0.6252615578510718, "pi": 0.7093428134365634,
+                         "macro": 0.7013148830374739},
+        },
+        "jax_cpu": {
+            "auc": {"1p": 0.672512049568233, "2i": 0.8583965108314534,
+                    "2p": 0.6748502456896588, "3i": 0.8619300739465211,
+                    "3p": 0.7433586205461207, "ip": 0.7108063557109271,
+                    "pi": 0.7757782287157287, "macro": 0.7568045835726632},
+            "apr": {"1p": 0.6629, "2i": 0.84925, "2p": 0.6590715212232525,
+                    "3i": 0.8682000000000001, "3p": 0.7254894697141908,
+                    "ip": 0.7206012108308067, "pi": 0.7774500000000001,
+                    "macro": 0.75185174310975},
+            "hard_auc": {"2i": 0.7012249069099155, "3i": 0.7698818765299029,
+                         "ip": 0.6206486203835948, "pi": 0.6960150370462871,
+                         "macro": 0.696942610217425},
+            "loss_windows": {"1p": [0.6534786060452461, 0.1595053980499506],
+                             "2p": [0.008784994753077625, 0.00749792056158185],
+                             "3p": [0.008413322228007019, 0.006147146211005748],
+                             "2i": [0.003554408644558862, 0.002947473048698157],
+                             "3i": [0.0033707711531315, 0.0026337561791297047],
+                             "ip": [0.003953254939988255, 0.0031161608558613807],
+                             "pi": [0.003583072625333443, 0.003184698704862967]},
+        },
+    },
+    "bio-latent": {
+        "n_queries": 56499,
+        "data_sha256": "afefe9472722f58ad0b69cc2d396e927a1bf1bc613bf62d37f45302a0a21677b",
+        "init_sha256": "cb1f4f9d415d0dc0e1fe8ec8cc27e912119f87d780a4a4bb77956ba127d84d03",
+        "oracle": {
+            "auc": {"1p": 0.7381173197333165, "2i": 0.8814949621027408,
+                    "2p": 0.7170420841275746, "3i": 0.9026033695247405,
+                    "3p": 0.6622916136151428, "ip": 0.7834629187237886,
+                    "pi": 0.8287683150183155, "macro": 0.7876829404065171},
+            "apr": {"1p": 0.7418, "2i": 0.8782, "2p": 0.7197318273924657,
+                    "3i": 0.8935999999999998, "3p": 0.6770784473146572, "ip": 0.7868,
+                    "pi": 0.82245, "macro": 0.7885228963867318},
+            "hard_auc": {"2i": 0.6793053812157913, "3i": 0.7381073348694315,
+                         "ip": 0.6678428790412484, "pi": 0.7511550671550671,
+                         "macro": 0.7091026655703846},
+        },
+        "jax_cpu": {
+            "auc": {"1p": 0.7373009668658398, "2i": 0.8806045647034425,
+                    "2p": 0.7227914890934771, "3i": 0.899319173881674,
+                    "3p": 0.6602495649775062, "ip": 0.7841335237829803,
+                    "pi": 0.8287951770451771, "macro": 0.7875992086214424},
+            "apr": {"1p": 0.7392500000000001, "2i": 0.8792, "2p": 0.720244922630561,
+                    "3i": 0.8891, "3p": 0.6788265171596671, "ip": 0.7823500000000001,
+                    "pi": 0.8222999999999999, "macro": 0.787324491398604},
+            "hard_auc": {"2i": 0.6725231355331974, "3i": 0.7316439626681563,
+                         "ip": 0.6770760637309553, "pi": 0.744893772893773,
+                         "macro": 0.7065342337065206},
+            "loss_windows": {"1p": [0.6489325183629989, 0.1456845645606518],
+                             "2p": [0.00804137974511832, 0.006920099558774382],
+                             "3p": [0.00839802117086947, 0.007348154145292937],
+                             "2i": [0.0036989649257156997, 0.0029073106992291288],
+                             "3i": [0.003630197464954108, 0.002575210924842395],
+                             "ip": [0.0037004220427479593, 0.003014743981184438],
+                             "pi": [0.0036279437819030135, 0.003126297746784985]},
+        },
+    },
+}
+# macro AUC and APR: within this of JAX CPU's; and of the oracle's wherever
+# JAX CPU is within it (RESULTS_oracle_parity.md's contract)
+ORACLE_TOL = 0.01
+
+
+def phase_sampler(dev, card: str, python_sample_s: float) -> dict:
+    """The native C++ sampler: built with g++; both bar families' data drawn
+    by the port's parallel_sample (native, 8 threads) and held to the
+    recorded digests; parallel_sample timed over the protocol cell's 35,000
+    queries beside the Python QuerySampler's time for the same count
+    (protocol's data step); pools built straight from the sampler's arrays
+    (device_pool_from_arrays) equal, on the card, to DevicePool built from
+    the same queries. Returns {family: (graph, train, val)}."""
+    import torch
+
+    from graphqembed_tpu_torch.config import STRUCTURES
+    from graphqembed_tpu_torch.data.sampling import parallel_sample
+    from graphqembed_tpu_torch.experiments import oracle_parity as op
+    from graphqembed_tpu_torch.native import binding
+    from graphqembed_tpu_torch.training.device_data import (
+        POOL_FIELDS,
+        DevicePool,
+        DeviceTrainData,
+        device_pool_from_arrays,
+    )
+
+    t0 = time.perf_counter()
+    lib = binding.build()
+    emit({"phase": "sampler", "step": "build", "library": lib.name,
+          "seconds": time.perf_counter() - t0})
+    bar = {}
+    for ds in op.DATASETS:
+        graph = op.bar_graph(ds)
+        t0 = time.perf_counter()
+        train, val, every = op.bar_data(graph)
+        secs = time.perf_counter() - t0
+        sha, ref = op.queries_sha256(every), ORACLE_BAR[ds]
+        check(len(every) == ref["n_queries"] and sha == ref["data_sha256"],
+              f"{ds}: {len(every)} queries, sha256 {sha}; recorded "
+              f"{ref['n_queries']}, {ref['data_sha256']}")
+        bar[ds] = (graph, train, val)
+        emit({"phase": "sampler", "step": f"bar_data_{ds}", "seconds": secs,
+              "n_train": len(train), "n_val": len(val), "sha256": sha,
+              "equals_recorded": True})
+
+    graph = op.bar_graph("bio-latent")
+    n = PROTOCOL_N_TRAIN + PROTOCOL_N_VAL
+    t0 = time.perf_counter()
+    native = [len(parallel_sample(graph, st, n, n_workers=8, seed=0, max_negs=50,
+                                  engine="native")) for st in STRUCTURES]
+    native_s = time.perf_counter() - t0
+    check(sum(native) >= 0.95 * 7 * n, f"native sampler gave {native} queries")
+    emit({"phase": "sampler", "step": "protocol_queries", "card": card,
+          "queries": 7 * n, "native_queries": sum(native),
+          "native_8_threads_s": native_s, "python_s": python_sample_s,
+          "speedup": python_sample_s / native_s})
+
+    schema, pools = graph.schema, {}
+    for si, st in enumerate(STRUCTURES):
+        kw = dict(seed=100 + si, max_negs=16)
+        pool = device_pool_from_arrays(schema, binding.native_sample_arrays(
+            graph, st, 2000, **kw), device=dev)
+        by_q = DevicePool(schema, st, binding.native_sample_many(graph, st, 2000, **kw),
+                          device=dev)
+        check(pool.n == by_q.n and pool.device == by_q.device, f"{st}: pool sizes")
+        for k in POOL_FIELDS:
+            a, b = getattr(pool, k), getattr(by_q, k)
+            if k in ("negs", "hard"):   # Query objects hold sorted pools
+                a, b = a.sort(dim=1).values, b.sort(dim=1).values
+            check(torch.equal(a, b), f"{st}: device_pool_from_arrays {k} differs")
+        pools[st] = pool
+    data = DeviceTrainData.from_pools(pools, device=dev)
+    check(data.structures == list(STRUCTURES)
+          and data.weights == {s: p.n for s, p in pools.items()}, "from_pools")
+    emit({"phase": "sampler", "step": "pools", "structures": len(pools),
+          "rows": sum(p.n for p in pools.values()), "equal": True})
+    return bar
+
+
+def check_oracle_kernels(dev, gen) -> dict:
+    """The oracle path's kernels at its shapes, against their plain
+    versions: fused_adam_leaf on the float32 [1760,128] table, five steps,
+    bit-exact; scatter_rows on a float32 [1760,128] table gradient from 512
+    ids (one per-formula gather), bit-exact. Each timed with its bound and
+    the library call."""
+    import torch
+
+    from graphqembed_tpu_torch.experiments.kernel_bench import scatter_cost
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.ops import grads
+
+    n, d, lr = 1760, 128, 0.03
+    out = {}
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    p, mu, nu = rnd((n, d)), rnd((n, d), 0.01), rnd((n, d), 1e-3).abs()
+    err = 0.0
+    for t in range(1, 6):
+        k = [x.clone() for x in (p, mu, nu)]
+        g = rnd((n, d), 0.1)
+        fa.fused_adam_leaf(k[0], g, k[1], k[2], t, lr)
+        fa.fused_adam_leaf_plain(p, g, mu, nu, t, lr)
+        torch.cuda.synchronize()
+        err = max([err] + [float((a - b).abs().max()) for a, b in zip(k, (p, mu, nu))])
+        check(all(ulp_diff(a, b) == 0 for a, b in zip(k, (p, mu, nu))),
+              f"fused_adam_leaf differs from plain on the oracle table, step {t}")
+    step = torch.tensor(7.0, device=dev)
+    b_ms, b_by = bound(28 * n * d, 13 * n * d)
+    out["fused_adam_leaf"] = {
+        "shape": [n, d], "max_abs_err": err,
+        "ms": device_ms(lambda: fa.fused_adam_leaf(p, g, mu, nu, 7, lr)),
+        "plain_ms": device_ms(lambda: fa.fused_adam_leaf_plain(p, g, mu, nu, 7, lr)),
+        "library_ms": device_ms(lambda: torch._fused_adam_(
+            [p], [g], [mu], [nu], [], [step], lr=lr, beta1=0.9, beta2=0.999,
+            weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+    ids = torch.randint(0, n, (512,), generator=gen).to(dev)
+    ct = rnd((512, d), 0.01)
+    got, want = grads.scatter_rows(n, ids, ct), grads.scatter_rows_plain(n, ids, ct)
+    torch.cuda.synchronize()
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          "scatter_rows differs from plain on the oracle table")
+    z = torch.zeros((n, d), device=dev)
+    b_ms, b_by = bound(*scatter_cost(n, 512, d, 4))
+    out["scatter_rows"] = {
+        "shape": [n, d], "length": 512, "dtype": "torch.float32",
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": device_ms(lambda: grads.scatter_rows(n, ids, ct)),
+        "plain_ms": device_ms(lambda: grads.scatter_rows_plain(n, ids, ct), reps=5),
+        "library_ms": device_ms(lambda: z.index_add_(0, ids, ct)),
+        "zeros_index_add_ms": device_ms(
+            lambda: torch.zeros((n, d), device=dev).index_add_(0, ids, ct)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    return out
+
+
+def phase_oracle_parity(dev, card: str, bar: dict) -> dict:
+    """The oracle-parity bar on the card for bio and bio-latent: the init's
+    digest against the recorded one, the host loop (12,000 float32 steps at
+    d=128, B=512, bilinear/min) on the sampler phase's data with the counts
+    set to 0 just before it, exact launches (fused_adam_leaf 4 per step,
+    scatter_rows once per table gather: anchors + 2 per step), finite
+    parameters, a falling burn-in loss, a falling loss for each structure
+    whose loss falls in the JAX CPU run, and the gates of ORACLE_TOL on
+    macro AUC and APR against JAX CPU and the oracle."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.data.queries import STRUCT_SHAPE
+    from graphqembed_tpu_torch.experiments import oracle_parity as op
+    from graphqembed_tpu_torch.models.params import tree_map
+
+    kern = check_oracle_kernels(dev, torch.Generator().manual_seed(8))
+    emit({"phase": "oracle_parity", "step": "kernels", "card": card, **kern})
+    runs = {}
+    for ds, (graph, train, val) in bar.items():
+        ref = ORACLE_BAR[ds]
+        cfg = op.bar_config()
+        p0 = op.bar_init(cfg, graph.schema)
+        init_sha = op.params_sha256(tree_map(lambda x: x.detach().numpy(), p0))
+        check(init_sha == ref["init_sha256"],
+              f"{ds}: init sha256 {init_sha}, recorded {ref['init_sha256']} "
+              f"(torch {torch.__version__})")
+        params = op.to_device(p0, dev)
+        reset_counts()
+        w0 = time.perf_counter()
+        report, res = op.run_bar(cfg, graph.schema, params, train, val, dev)
+        wall = time.perf_counter() - w0
+        launches = read_counts()
+        steps = report["steps"]
+        check(steps == cfg.max_iter and report["burn_in_steps"] == cfg.max_burn_in,
+              f"{ds}: {steps} steps, {report['burn_in_steps']} of burn-in")
+        gathers = sum(k * (STRUCT_SHAPE[s][0] + 2)
+                      for s, k in report["steps_by_structure"].items())
+        want = want_counts(fused_adam_leaf=4 * steps, scatter_rows=gathers)
+        check(launches == want and report["launches"] == want,
+              f"{ds}: launches {launches} (training {report['launches']}), want {want}")
+        check_params_finite(res.best_params, res)
+        burn = res.losses["1p"][:res.burn_in_steps]
+        check(all(np.isfinite(v) for vs in res.losses.values() for v in vs)
+              and fell(burn, 100), f"{ds}: losses not finite or burn-in not falling")
+        windows = {s: [float(np.mean(v[:100])), float(np.mean(v[-100:]))]
+                   for s, v in res.losses.items()}
+        for s, (first, last) in ref["jax_cpu"]["loss_windows"].items():
+            if last < first:
+                check(windows[s][1] < windows[s][0],
+                      f"{ds}: {s} loss fell in the JAX CPU run, not here: {windows[s]}")
+        gates = {}
+        for m in ("auc", "apr"):
+            port = report[m]["macro"]
+            jax_m, oracle_m = ref["jax_cpu"][m]["macro"], ref["oracle"][m]["macro"]
+            gates[m] = {"port": port, "jax_cpu": jax_m, "oracle": oracle_m,
+                        "port_minus_jax": port - jax_m,
+                        "port_minus_oracle": port - oracle_m,
+                        "jax_minus_oracle": jax_m - oracle_m}
+        summary = {
+            "dataset": ds, "card": card, "wall_s": wall, "train_s": report["train_s"],
+            "ms_per_step": 1e3 * report["train_s"] / steps,
+            "queries_per_sec": steps * cfg.batch_size / report["train_s"],
+            "steps": steps, "burn_in_steps": report["burn_in_steps"],
+            "launches": launches, "val_history": res.val_history,
+            "loss_windows": windows, "gates": gates, "tolerance": ORACLE_TOL,
+            **{m: report[m] for m in ("auc", "apr", "hard_auc")},
+            "jax_cpu": {m: ref["jax_cpu"][m] for m in ("auc", "apr", "hard_auc")},
+            "oracle": {m: ref["oracle"][m] for m in ("auc", "apr", "hard_auc")}}
+        emit({"phase": "oracle_parity", "step": ds, **summary})
+        for m, gt in gates.items():
+            check(abs(gt["port_minus_jax"]) <= ORACLE_TOL,
+                  f"{ds}: macro {m} {gt['port']} not within {ORACLE_TOL} of "
+                  f"JAX CPU's {gt['jax_cpu']}")
+            if abs(gt["jax_minus_oracle"]) <= ORACLE_TOL:
+                check(abs(gt["port_minus_oracle"]) <= ORACLE_TOL,
+                      f"{ds}: macro {m} {gt['port']} not within {ORACLE_TOL} of "
+                      f"the oracle's {gt['oracle']}, where JAX CPU is")
+        runs[ds] = summary
+    return {"runs": runs, "kernels": kern}
 
 
 def main(argv):
@@ -1579,9 +1904,18 @@ def main(argv):
     phase_train_sparse(dev, card, work)
     phase_multitask(dev, card, work)
     eval_launches = phase_eval(trained, card)
-    protocol, onthefly = protocol_phases(card, "--profile" in argv)
+    protocol, onthefly, protocol_data = protocol_phases(card, "--profile" in argv)
+    bar = phase_sampler(dev, card, protocol_data["python_sample_s"])
+    oracle = phase_oracle_parity(dev, card, bar)
 
     print(card, flush=True)
+
+    def oracle_keys(name):
+        """The oracle bar's launches of `name` per family and its check at
+        the bar's float32 [1760,128] table."""
+        return {"launches_oracle": {ds: r["launches"][name]
+                                    for ds, r in oracle["runs"].items()},
+                **{f"oracle_{k}": v for k, v in oracle["kernels"][name].items()}}
 
     leaf_t = kern["fused_adam_leaf"]["timing"]["proj/W"]
     sr_t = kern["fused_adam_leaf_sr"]["timing"]["table"]
@@ -1593,7 +1927,7 @@ def main(argv):
          "max_abs_err": kern["fused_adam_leaf"]["max_abs_err"],
          "ms": leaf_t["ms"], "plain_ms": leaf_t["plain_ms"],
          "bound_ms": leaf_t["bound_ms"], "bound_by": leaf_t["bound_by"],
-         "library_ms": leaf_t["library_ms"]},
+         "library_ms": leaf_t["library_ms"], **oracle_keys("fused_adam_leaf")},
         {"name": "fused_adam_leaf_sr", "route": "cuda",
          "source": "graphqembed_tpu_torch/csrc/fused_adam.cu",
          "replaces": "graphqembed_tpu/ops/fused_adam.py:161",
@@ -1629,6 +1963,7 @@ def main(argv):
          "launches": launches["scatter_rows"],
          "launches_protocol": protocol["headline"]["launches"]["scatter_rows"],
          "launches_onthefly": onthefly["headline"]["launches"]["scatter_rows"],
+         **oracle_keys("scatter_rows"),
          "max_abs_err": sc["max_abs_err"],
          "ms": sc_t["ms"], "plain_ms": sc_t["plain_ms"],
          "bound_ms": sc_t["bound_ms"], "bound_by": sc_t["bound_by"],

@@ -6,4 +6,8 @@ from graphqembed_tpu_torch.data.queries import (  # noqa: F401
     group_by_formula,
     make_batch,
 )
-from graphqembed_tpu_torch.data.sampling import QuerySampler, answers  # noqa: F401
+from graphqembed_tpu_torch.data.sampling import (  # noqa: F401
+    QuerySampler,
+    answers,
+    parallel_sample,
+)

@@ -12,9 +12,15 @@ queries for the same numpy seed):
   targets reachable (via r3) from partial matches at v, minus true answers.
 - "clean" test queries: target is an answer on the FULL graph but NOT on the
   training graph.
+
+`parallel_sample` shards a request over workers with disjoint seeds and
+merges the shards in order, deduped: on the native C++ sampler (threads) or
+on this module's QuerySampler (processes).
 """
 
 from __future__ import annotations
+
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -304,3 +310,66 @@ class QuerySampler:
             seen.add(k)
             out.append(q)
         return out
+
+
+# ---------- parallel driver ----------
+
+def _worker(args) -> list[tuple]:
+    graph, structure, n, seed, exhaustive, max_negs = args
+    s = QuerySampler(graph, np.random.default_rng(seed), max_negs=max_negs)
+    return [q.serialize() for q in s.sample_many(structure, n, exhaustive)]
+
+
+def _merge(shards) -> list[Query]:
+    """Concatenate the shards in order, keeping the first of each dedup key."""
+    seen: set[tuple] = set()
+    out: list[Query] = []
+    for shard in shards:
+        for q in shard:
+            k = q.dedup_key()
+            if k not in seen:
+                seen.add(k)
+                out.append(q)
+    return out
+
+
+def parallel_sample(graph: Graph, structure: str, n: int, n_workers: int = 4,
+                    seed: int = 0, exhaustive_negs: bool = False,
+                    max_negs: int = 100, engine: str = "auto") -> list[Query]:
+    """Up to n deduped queries of one structure from n_workers shards of
+    ceil(n / n_workers) queries each, worker w seeded seed * 10_000 + w, the
+    shards merged in order. engine "native" takes the C++ sampler on threads
+    (its calls release the GIL), "python" the QuerySampler in forked
+    processes, "auto" the native one where a g++ is found. With one worker
+    the single sampler is seeded with `seed`. The output equals the JAX
+    package's parallel_sample query for query. A failure of the native
+    sampler raises on every engine: it is never replaced by the Python one,
+    which draws other queries."""
+    if engine not in ("auto", "native", "python"):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine == "auto":
+        from graphqembed_tpu_torch.native import native_available
+        engine = "native" if native_available() else "python"
+    per = -(-n // n_workers)
+    if engine == "native":
+        from graphqembed_tpu_torch.native import native_sample_many
+
+        if n_workers <= 1:
+            return native_sample_many(graph, structure, n, seed=seed,
+                                      max_negs=max_negs,
+                                      exhaustive_negs=exhaustive_negs)
+        with ThreadPoolExecutor(max_workers=n_workers) as ex:
+            shards = list(ex.map(
+                lambda w: native_sample_many(
+                    graph, structure, per, seed=seed * 10_000 + w,
+                    max_negs=max_negs, exhaustive_negs=exhaustive_negs),
+                range(n_workers)))
+        return _merge(shards)[:n]
+    if n_workers <= 1:
+        s = QuerySampler(graph, np.random.default_rng(seed), max_negs=max_negs)
+        return s.sample_many(structure, n, exhaustive_negs)
+    jobs = [(graph, structure, per, seed * 10_000 + w, exhaustive_negs, max_negs)
+            for w in range(n_workers)]
+    with ProcessPoolExecutor(max_workers=n_workers) as ex:
+        shards = list(ex.map(_worker, jobs))
+    return _merge([Query.deserialize(t) for t in shard] for shard in shards)[:n]

@@ -39,7 +39,7 @@ from graphqembed_tpu_torch.config import (
     STRUCTURES,
     GQEConfig,
 )
-from graphqembed_tpu_torch.data.queries import Query
+from graphqembed_tpu_torch.data.queries import STRUCT_SHAPE, Query
 from graphqembed_tpu_torch.device import check_placed, resolve_device
 from graphqembed_tpu_torch.graph.schema import Schema
 from graphqembed_tpu_torch.models import gqe
@@ -117,6 +117,45 @@ class DevicePool:
         return self.anchors.device
 
 
+def device_pool_from_arrays(schema: Schema, arrays: dict,
+                            neg_width: int = 16, hard_neg_width: int = 16,
+                            device=None) -> DevicePool:
+    """A DevicePool straight from native_sample_arrays output (no Query
+    objects in between): the bulk preprocessing path. The negative pools keep
+    their first neg_width (hard_neg_width) entries; a row with no hard pool
+    takes its plain negatives there."""
+    dev = resolve_device(device)
+    structure = arrays["structure"]
+    a, r = STRUCT_SHAPE[structure]
+    n = len(arrays["targets"])
+    rels = arrays["rels"][:, :r]
+    if structure in INTERSECT_STRUCTURES:
+        tm = schema.rel_target_mode_ids()
+        # ip intersects at v, the branch relations' to-mode; 2i/3i/pi at
+        # the target's mode
+        inter_modes = tm[rels[:, 0]] if structure == "ip" else tm[rels[:, -1]]
+    else:
+        inter_modes = np.full(n, -1)
+    negs = arrays["negs"][:, :neg_width]
+    negc = np.minimum(arrays["neg_counts"], neg_width)
+    hard = arrays["hard"][:, :hard_neg_width]
+    hardc = np.minimum(arrays["hard_counts"], hard_neg_width)
+    none = hardc == 0
+    hard = np.where(none[:, None], negs[:, :hard_neg_width], hard)
+    hardc = np.where(none, negc, hardc)
+    host = {"anchors": arrays["anchors"][:, :a], "rels": rels,
+            "inter_modes": inter_modes, "targets": arrays["targets"],
+            "negs": negs, "neg_counts": np.maximum(negc, 1), "hard": hard,
+            "hard_counts": np.maximum(hardc, 1)}
+    pool = DevicePool.__new__(DevicePool)
+    pool.structure = structure
+    pool.n = n
+    for k in POOL_FIELDS:
+        setattr(pool, k, torch.from_numpy(
+            np.ascontiguousarray(host[k], dtype=np.int64)).to(dev))
+    return pool
+
+
 class DeviceTrainData:
     def __init__(self, schema: Schema, queries: list[Query],
                  neg_width: int = 16, hard_neg_width: int = 16, device=None):
@@ -133,6 +172,19 @@ class DeviceTrainData:
     @property
     def structures(self) -> list[str]:
         return [s for s in STRUCTURES if s in self.pools]
+
+    @classmethod
+    def from_pools(cls, pools: dict[str, DevicePool],
+                   device=None) -> "DeviceTrainData":
+        """Wrap pools built already on `device` (device_pool_from_arrays: no
+        Query objects, the multi-million-query route)."""
+        dev = resolve_device(device)
+        for s, p in pools.items():
+            check_placed(dev, f"pool {s}", p.anchors)
+        self = cls.__new__(cls)
+        self.pools = dict(pools)
+        self.weights = {s: int(p.n) for s, p in pools.items()}
+        return self
 
 
 def _hard_step(cfg: GQEConfig, t):
