@@ -81,6 +81,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              steps, val macro AUC and APR against the JAX CPU reference;
              SIGKILL and --resume through the plain CLI, bit for bit (2,000
              steps)
+  deep       the depth > 0 SAGE encoder (models/encoders.py): sage_encode on
+             the card against the CPU at the bench graph (depth 1 and 2,
+             mean and pool, float32; the output and every leaf's gradient,
+             the card's gradients equal over two runs); scatter_rows on the
+             id sets of deep train steps (depth 1 on the bench graph and the
+             protocol's, depth 2 with pool: up to 2.6M ids, every padded
+             neighbor on row 0) bit for bit against its plain version,
+             timed beside zeros + index_add_; gqe-torch-train --pipeline
+             device --bf16 --depth 1 on the protocol's data (6,000 steps,
+             1,500 of burn-in) with exact launches, falling losses and val
+             macro AUC and APR against the JAX CPU reference; SIGKILL and
+             --resume, bit for bit (1,000 steps); --pipeline onthefly
+             --depth 1 and --pipeline host --depth 1 --aggregator pool (360
+             steps each); 20 depth-2 pool steps at the bench workload, with
+             their time and peak memory
   sampler    the native C++ sampler (native/sampler.cpp) built with g++; the
              oracle bar's data of both families (bio, bio-latent: 8,000 +
              400 queries per structure, parallel_sample native on 8
@@ -1096,6 +1111,33 @@ ONTHEFLY_FLAGS = ["--pipeline", "onthefly", "--bf16", "--lr", "0.03",
 # resumed run is compared bit for bit with an uninterrupted one.
 CLI = ["-m", "graphqembed_tpu_torch.cli.train"]
 
+# The deep phase (the depth-1 SAGE encoder, mean aggregator) on the
+# protocol's data: the headline run's flags are the protocol's plus the
+# encoder's, cut from 12,000 to 6,000 steps (a depth-1 step does about
+# twice a depth-0 step's launches); kill/resume and the short onthefly and
+# host runs at smaller budgets.
+DEEP_FLAGS = PROTOCOL_FLAGS + ["--depth", "1", "--aggregator", "mean"]
+DEEP = {"max_iter": 6000, "max_burn_in": 1500, "val_every": 1500,
+        "ckpt_every": 1500}
+DEEP_RESUME = {"max_iter": 1000, "max_burn_in": 300, "val_every": 500,
+               "ckpt_every": 250}
+DEEP_SHORT = {"max_iter": 360, "max_burn_in": 120, "val_every": 120}
+# JAX CPU reference of the deep headline run, as the protocol's:
+#   JAX_PLATFORMS=cpu python -m graphqembed_tpu.cli.train --data_dir D \
+#     --model_dir M <cli_flags(DEEP_FLAGS, DEEP)>
+# (6,400 steps), whose final AUC and APR of the best parameters are read
+# from M's last checkpoint by
+#   JAX_PLATFORMS=cpu python tests/test_torch_deep.py --reference D M
+# (its own final eval_apr at depth 1 needs tens of GB at eval_batch_size
+# 1,024; a smaller eval batch changes no value, and its AUC equals the
+# run's best_val_auc).
+JAX_CPU_DEEP = {"auc": 0.7450413929777486, "apr": 0.7411843806579709}
+# The encoder on the card against the same function on the CPU (float32,
+# TF32 off): outputs are unit vectors, so an absolute bound; gradients
+# within 1e-4 relative plus 1e-5 of the leaf's largest magnitude (both
+# sides sum in other orders, tests/test_torch_encoders.py).
+DEEP_ENCODER_TOL = {"out_atol": 1e-5, "grad_rtol": 1e-4, "grad_atol_of_max": 1e-5}
+
 
 def write_protocol_data(path):
     """The protocol's graph and queries through the port's generator, sampler
@@ -1533,6 +1575,341 @@ def phase_onthefly(card: str, data, profile: bool = False):
     return {"headline": summary, "resume": resume}
 
 
+def deep_cfg(cfg, depth: int, aggregator: str):
+    return dataclasses.replace(cfg, depth=depth, aggregator=aggregator)
+
+
+def check_deep_encoder(dev, work: dict, tables) -> dict:
+    """sage_encode on the card against the same function on the CPU (the
+    plain versions there) at the bench graph (35,200 nodes, S = 8, d = 128)
+    in float32: depth 1 on one bench 3i batch's 2,560 ids (anchors, target,
+    negative), depth 2 on its first 128, each with the mean and the pool
+    aggregator; the output and the gradient of every leaf (table, W_self,
+    W_rel, W_pool) of Σ out·r for a fixed random r, within
+    DEEP_ENCODER_TOL. The card's gradients are taken twice and must agree
+    bit for bit."""
+    import torch
+
+    from graphqembed_tpu_torch.models.encoders import sage_encode
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.training.device_data import _batch_ids, _select_batches
+
+    graph = work["graph"]
+    batch = _select_batches(work["cfg"], torch.Generator(device=dev).manual_seed(11),
+                            1, work["data"].pools["3i"], True)
+    ids = _batch_ids(batch)[0].reshape(-1).cpu()
+    cfg = deep_cfg(work["cfg32"], 2, "mean")
+    p = init_params(cfg, graph.schema, torch.Generator().manual_seed(1), device="cpu")
+    leaves = {"table": p["table"], **{f"encoder/{k}": v for k, v in p["encoder"].items()}}
+    placed = {"cpu": tables.to("cpu"), "card": tables.to(dev)}
+    tol = DEEP_ENCODER_TOL
+    rows = []
+    for depth, n_ids in ((1, ids.numel()), (2, min(128, ids.numel()))):
+        for agg in ("mean", "pool"):
+            c = deep_cfg(cfg, depth, agg)
+            r = torch.randn(n_ids, cfg.embed_dim, generator=torch.Generator().manual_seed(depth))
+            got = {}
+            for where, d in (("cpu", "cpu"), ("card", dev)):
+                lv = {k: v.detach().to(d).requires_grad_() for k, v in leaves.items()}
+                enc = {k[len("encoder/"):]: v for k, v in lv.items() if k != "table"}
+                runs = []
+                for _ in range(2 if where == "card" else 1):
+                    t0 = time.perf_counter()
+                    out = sage_encode(c, lv["table"], enc, placed[where], ids[:n_ids].to(d),
+                                      depth=depth, aggregator=agg)
+                    g = torch.autograd.grad((out * r.to(d)).sum(), list(lv.values()),
+                                            allow_unused=True, materialize_grads=True)
+                    runs.append((out.detach().cpu(), [x.cpu() for x in g],
+                                 time.perf_counter() - t0))
+                if where == "card":
+                    check(all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1])),
+                          f"deep encoder gradients differ between two runs on the card "
+                          f"(depth {depth}, {agg})")
+                got[where] = runs[-1]
+            (out_c, g_c, s_c), (out_k, g_k, s_k) = got["cpu"], got["card"]
+            out_err = float((out_k - out_c).abs().max())
+            errs, excess = {}, {}
+            for name, a, b in zip(leaves, g_k, g_c):
+                err = (a - b).abs()
+                allowed = tol["grad_rtol"] * b.abs() + tol["grad_atol_of_max"] * float(b.abs().max())
+                errs[name] = float(err.max())
+                excess[name] = float((err - allowed).max())
+            check(out_err <= tol["out_atol"], f"deep encoder output (depth {depth}, {agg}) "
+                  f"differs from the CPU by {out_err}")
+            check(all(v <= 0 for v in excess.values()),
+                  f"deep encoder gradients (depth {depth}, {agg}) outside tolerance: {errs}")
+            rows.append({"depth": depth, "aggregator": agg, "ids": n_ids,
+                         "out_max_abs_err": out_err, "grad_max_abs_err": errs,
+                         "card_fwd_bwd_s": s_k, "cpu_fwd_bwd_s": s_c,
+                         "card_grads_bit_identical_twice": True})
+    return {"rows": rows, "tolerance": tol}
+
+
+def capture_scatter_inputs(fn) -> list:
+    """fn() with ops/grads.py's scatter_rows recording its inputs: the (n,
+    ids, ct) of every launch fn makes."""
+    from graphqembed_tpu_torch.ops import grads
+
+    seen, real = [], grads.scatter_rows
+
+    def record(n, ids, ct):
+        seen.append((n, ids.clone(), ct.clone()))
+        return real(n, ids, ct)
+
+    grads.scatter_rows = record
+    try:
+        fn()
+    finally:
+        grads.scatter_rows = real
+    return seen
+
+
+def deep_step_inputs(dev, cfg, graph, pool, tables, structure="3i") -> list:
+    """The scatter_rows inputs of one deep train step of `cfg` on `pool`."""
+    import torch
+
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.training.device_data import default_optimizer, make_scan_train_step
+
+    params = init_params(cfg, graph.schema, torch.Generator().manual_seed(2), device=dev)
+    opt = default_optimizer(cfg)
+    run = make_scan_train_step(cfg, opt, tables)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    return capture_scatter_inputs(
+        lambda: run(params, opt.init(params), pool, structure, gen, 1, 1.0, True))
+
+
+def check_deep_scatter(dev, cases: dict) -> dict:
+    """scatter_rows on the deep steps' own inputs (cases: name -> (n, ids,
+    ct), captured from train steps), deterministic over two calls and bit
+    for bit against its plain version, and timed beside zeros + index_add_
+    (the PyTorch route) and index_add_ alone, each with its bound. Every
+    padded neighbor id is clamped to row 0 (the JAX package's encoder), so
+    row 0 is one long run of the sum: max_run."""
+    import torch
+
+    from graphqembed_tpu_torch.experiments.kernel_bench import scatter_cost
+    from graphqembed_tpu_torch.ops import grads
+
+    rows = {}
+    for name, (n, ids, ct) in cases.items():
+        length, width = ct.shape
+        bits = torch.int16 if ct.dtype == torch.bfloat16 else torch.int32
+        got = grads.scatter_rows(n, ids, ct)
+        again = grads.scatter_rows(n, ids, ct)
+        check(torch.equal(got.view(bits), again.view(bits)), f"scatter_rows not deterministic on {name}")
+        row = {"shape": [n, width], "length": length, "dtype": str(ct.dtype),
+               "distinct_rows": int(torch.unique(ids).numel()),
+               "max_run": int(torch.bincount(ids).max()),
+               "rows_on_row_0": int((ids == 0).sum())}
+        g = torch.zeros((n, width), dtype=ct.dtype, device=dev)
+
+        def zeros_index_add():
+            torch.zeros((n, width), dtype=ct.dtype, device=dev).index_add_(0, ids, ct)
+
+        n_bytes, n_ops = scatter_cost(n, length, width, ct.element_size())
+        b_ms, b_by = bound(n_bytes, n_ops)
+        kernel = lambda: grads.scatter_rows(n, ids, ct)  # noqa: E731
+        row.update(ms=device_ms(kernel), call_ms=time_ms(kernel, reps=10, inner=2),
+                   library_ms=device_ms(lambda: g.index_add_(0, ids, ct)),
+                   zeros_index_add_ms=device_ms(zeros_index_add),
+                   bound_ms=b_ms, bound_by=b_by, bytes=n_bytes)
+        t0 = time.perf_counter()
+        want = grads.scatter_rows_plain(n, ids, ct)
+        torch.cuda.synchronize()
+        check(torch.equal(got.view(bits), want.view(bits)),
+              f"scatter_rows differs from plain on {name}")
+        row.update(bit_exact=True, max_abs_err=float((got.float() - want.float()).abs().max()),
+                   plain_call_s=time.perf_counter() - t0)
+        rows[name] = row
+    return rows
+
+
+def phase_deep(dev, card: str, data, work: dict) -> dict:
+    """The depth > 0 SAGE encoder on the card: (1) the encoder against the
+    CPU at the bench graph (check_deep_encoder); scatter_rows on the deep
+    steps' own id sets (check_deep_scatter); (2) the headline run
+    gqe-torch-train --pipeline device --bf16 --depth 1 --aggregator mean on
+    the protocol's data (DEEP: 6,000 steps, 1,500 of burn-in, evals every
+    1,500) with exact launches per step (fused_adam_leaf 6: proj, inter and
+    the three encoder leaves; fused_adam_leaf_sr 1; scatter_rows depth + 1
+    = 2: one gather per level over every id of the batch), finite
+    parameters, falling losses and val macro AUC and APR against
+    JAX_CPU_DEEP; (3) SIGKILL and --resume through the plain CLI at
+    DEEP_RESUME, bit for bit; (4) --pipeline onthefly --bf16 --depth 1 and
+    --pipeline host --depth 1 --aggregator pool (float32) at DEEP_SHORT,
+    with their launches, finite, falling, evaluated; (5) depth 2 with the
+    pool aggregator at the bench workload (bf16, d = 128, B = 512): 20
+    steps of make_scan_train_step with the tables (3 scatter_rows per
+    step), time per step and peak memory."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch import training
+    from graphqembed_tpu_torch.cli import train as cli
+    from graphqembed_tpu_torch.data.loader import import_reference_graph, load_queries
+    from graphqembed_tpu_torch.data.queries import STRUCT_SHAPE
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
+    from graphqembed_tpu_torch.models.params import init_params, tree_paths
+    from graphqembed_tpu_torch.training import device_data as dd
+    from graphqembed_tpu_torch.training import device_sampler as ds
+
+    out = {"card": card}
+    tmp = data.parent
+    base = ["--data_dir", str(data)]
+    graph, cfg = work["graph"], work["cfg"]
+
+    # 1. the encoder against the CPU; scatter_rows on the deep id sets
+    t0 = time.perf_counter()
+    tables = NeighborTables.build(graph, sample_size=8, seed=0)
+    tables_s = time.perf_counter() - t0
+    placed = tables.to(dev)
+    out["encoder"] = check_deep_encoder(dev, work, tables)
+    emit({"phase": "deep", "step": "encoder", "card": card, "tables_build_s": tables_s,
+          **out["encoder"]})
+
+    pgraph = import_reference_graph(data / "graph_data.pkl")
+    ptables = NeighborTables.build(pgraph, sample_size=8, seed=0).to(dev)
+    p3i = dd.DevicePool(pgraph.schema, "3i", [q for q in load_queries(data / "train_queries")
+                                               if q.formula.structure == "3i"],
+                         device=dev)
+    d1 = deep_cfg(cfg, 1, "mean")
+    d2 = deep_cfg(cfg, 2, "pool")
+    cases = {}
+    for key, c, g, pool, t in (("bench_d1", d1, graph, work["data"].pools["3i"], placed),
+                               ("protocol_d1", d1, pgraph, p3i, ptables),
+                               ("bench_d2", d2, graph, work["data"].pools["3i"], placed)):
+        seen = deep_step_inputs(dev, c, g, pool, t)
+        check(len(seen) == c.depth + 1, f"{key}: {len(seen)} scatter_rows launches, "
+              f"want {c.depth + 1}")
+        for n, ids, ct in seen:   # one gather per level: 2,560 ids × (J·S)^level
+            cases[f"{key}_{ids.numel()}_ids"] = (n, ids, ct)
+    out["scatter"] = check_deep_scatter(dev, cases)
+    del cases
+    emit({"phase": "deep", "step": "scatter_rows", "card": card, "tolerance": "bit-exact",
+          "cases": out["scatter"]})
+
+    # 2. the headline run
+    head = tmp / "deep_head"
+    reset_counts()
+    w0 = time.perf_counter()
+    rc, _, res = run_cli(cli.main, base + cli_flags(DEEP_FLAGS, DEEP)
+                         + ["--model_dir", str(head)], dd, "run_train_device_mega")
+    wall = time.perf_counter() - w0
+    launches = read_counts()
+    check(rc == 0 and len(res) == 1, f"deep headline run: rc {rc}")
+    res = res[0]
+    metrics = json.loads((head / "metrics.json").read_text())
+    steps = metrics["steps"]
+    check(steps >= DEEP["max_iter"], f"deep headline run took {steps} steps")
+    want = want_counts(fused_adam_leaf=6 * steps, fused_adam_leaf_sr=steps,
+                       scatter_rows=2 * steps)
+    check(launches == want, f"deep headline launches {launches}, want {want}")
+    best = load_params(head / "best")
+    check(set(best["encoder"]) == {"W_self", "W_rel", "W_pool"}, "no encoder in best/")
+    check_params_finite(best, res)
+    steps_per = cli.dispatch_steps_per(DEEP["max_iter"])
+    burn = res.losses["1p"][:res.burn_in_steps // steps_per]
+    multi = {s: v for s, v in res.losses.items() if s != "1p"}
+    check(all(np.isfinite(burn)) and fell(burn), f"deep burn-in loss did not fall: {burn}")
+    for s, v in multi.items():
+        check(all(np.isfinite(v)) and fell(v), f"deep multitask {s} loss did not fall: {v}")
+    bounds = eval_boundaries(DEEP["max_iter"], res.burn_in_steps, DEEP["val_every"],
+                             len(res.losses), steps_per)
+    check([s for s, _ in res.val_history] == bounds,
+          f"deep val_history {res.val_history}, eval boundaries {bounds}")
+    out["headline"] = {**headline_summary(metrics, res, launches, wall, card),
+                       "loss_burn_first_last": [burn[0], burn[-1]],
+                       "loss_multi_first_last": {s: [v[0], v[-1]] for s, v in multi.items()}}
+    emit({"phase": "deep", "step": "headline", **out["headline"]})
+    q = check_quality(metrics, JAX_CPU_DEEP, "deep headline")
+    emit({"phase": "deep", "step": "quality", "card": q, "jax_cpu": JAX_CPU_DEEP,
+          "tolerance": QUALITY_TOL})
+
+    # 3. SIGKILL and --resume through the plain CLI
+    out["resume"] = kill_and_resume(tmp, "deep", base + cli_flags(DEEP_FLAGS, DEEP_RESUME))
+    emit({"phase": "deep", "step": "resume", **out["resume"]})
+
+    # 4. onthefly (bf16) and host (float32, pool) at depth 1, short
+    short = {}
+    for name, flags, module, fn in (
+            ("onthefly", ONTHEFLY_FLAGS + ["--depth", "1"], ds, "run_train_onthefly"),
+            ("host", HOST_FLAGS + ["--depth", "1", "--aggregator", "pool"], training,
+             "run_train")):
+        run_dir = tmp / f"deep_{name}"
+        reset_counts()
+        w0 = time.perf_counter()
+        rc, _, r = run_cli(cli.main, base + cli_flags(flags, DEEP_SHORT)
+                           + ["--model_dir", str(run_dir)], module, fn)
+        wall = time.perf_counter() - w0
+        counts = read_counts()
+        check(rc == 0 and len(r) == 1, f"deep {name} run: rc {rc}")
+        r, m = r[0], json.loads((run_dir / "metrics.json").read_text())
+        n = m["steps"]
+        check(n == DEEP_SHORT["max_iter"], f"deep {name} took {n} steps")
+        if name == "onthefly":
+            want = want_counts(fused_adam_leaf=6 * n, fused_adam_leaf_sr=n, scatter_rows=2 * n)
+            burn = r.losses["1p"][:r.burn_in_steps // cli.dispatch_steps_per(n)]
+            k = 3
+        else:
+            # the per-formula loss: one encoder call per anchor column, the
+            # target and the negative, two gathers each
+            gathers = sum(2 * (STRUCT_SHAPE[s][0] + 2) * len(v)
+                          for s, v in r.losses.items())
+            want = want_counts(fused_adam_leaf=7 * n, scatter_rows=gathers)
+            burn = r.losses["1p"][:r.burn_in_steps]
+            k = 30
+        check(counts == want, f"deep {name} launches {counts}, want {want}")
+        check_params_finite(load_params(run_dir / "best"), r)
+        check(all(np.isfinite(v) for vs in r.losses.values() for v in vs) and fell(burn, k),
+              f"deep {name}: loss not finite or burn-in not falling")
+        check(r.val_history and all(0 < m[key]["macro"] <= 1 for key in
+                                    ("final_auc", "final_auc_hard", "final_apr")),
+              f"deep {name}: no eval ({r.val_history})")
+        t = m.get("timings")
+        short[name] = {"steps": n, "wall_s": wall, "queries_per_sec": m["queries_per_sec"],
+                       "ms_per_step": (1e3 * t["train_s"] / t["session_steps"]) if t else None,
+                       "launches": counts, "val_history": r.val_history,
+                       "auc": m["final_auc"]["macro"], "apr": m["final_apr"]["macro"]}
+    out["short"] = short
+    emit({"phase": "deep", "step": "short_runs", "card": card, **short})
+
+    # 5. depth 2, pool, at the bench workload
+    params = init_params(d2, graph.schema, torch.Generator().manual_seed(0), device=dev)
+    opt = dd.default_optimizer(d2)
+    state = opt.init(params)
+    run = dd.make_scan_train_step(d2, opt, placed)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    chunk_steps = 10
+
+    def chunk(i):
+        nonlocal params, state
+        s = ("3i", "2p")[i % 2]
+        params, state, loss = run(params, state, work["data"].pools[s], s, gen,
+                                  chunk_steps, 1.0, s == "3i")
+        return s, loss
+
+    chunk(0)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    losses, dev_s, wall = timed_chunks(chunk, 0, 2)
+    counts = read_counts()
+    steps = 2 * chunk_steps
+    want = want_counts(fused_adam_leaf=6 * steps, fused_adam_leaf_sr=steps,
+                       scatter_rows=3 * steps)
+    check(counts == want, f"depth-2 launches {counts}, want {want}")
+    check(all(np.isfinite(float(l)) for _, l in losses), f"depth-2 losses {losses}")
+    check(all(bool(torch.isfinite(v.float()).all()) for _, v in tree_paths(params)),
+          "depth-2 parameters not finite")
+    out["depth2"] = {"steps": steps, "ms_per_step": dev_s * 1e3 / steps,
+                     "train_qps": d2.batch_size * steps / dev_s, "wall_s": wall,
+                     "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+                     "losses": {s: float(l) for s, l in losses}, "launches": counts}
+    emit({"phase": "deep", "step": "depth2_pool", "card": card, **out["depth2"]})
+    return out
+
+
 def profile_chunk(chunk, i0, ms_per_step):
     """Device time by kernel over one 2p and one 3i chunk, and the device's
     idle share against the unprofiled step time."""
@@ -1554,10 +1931,11 @@ def profile_chunk(chunk, i0, ms_per_step):
                      "calls_per_step": c / steps} for us, k, c in rows[:15]]}
 
 
-def protocol_phases(card: str, profile: bool = False) -> tuple[dict, dict, dict]:
+def protocol_phases(dev, card: str, work: dict, profile: bool = False
+                    ) -> tuple[dict, dict, dict, dict]:
     """The protocol's data directory, written once, then the phases that
-    read it: protocol and onthefly. Returns their results and the data's
-    summary (with the Python sampler's seconds)."""
+    read it: protocol, onthefly and deep. Returns their results and the
+    data's summary (with the Python sampler's seconds)."""
     import tempfile
     from pathlib import Path
 
@@ -1567,8 +1945,8 @@ def protocol_phases(card: str, profile: bool = False) -> tuple[dict, dict, dict]
         info = write_protocol_data(data)
         emit({"phase": "protocol", "step": "data", **info,
               "seconds": time.perf_counter() - t0})
-        return (phase_protocol(card, data),
-                phase_onthefly(card, data, profile), info)
+        return (phase_protocol(card, data), phase_onthefly(card, data, profile),
+                phase_deep(dev, card, data, work), info)
 
 
 # The oracle-parity bar (graphqembed_tpu_torch/experiments/oracle_parity.py
@@ -1904,7 +2282,8 @@ def main(argv):
     phase_train_sparse(dev, card, work)
     phase_multitask(dev, card, work)
     eval_launches = phase_eval(trained, card)
-    protocol, onthefly, protocol_data = protocol_phases(card, "--profile" in argv)
+    protocol, onthefly, deep, protocol_data = protocol_phases(
+        dev, card, work, "--profile" in argv)
     bar = phase_sampler(dev, card, protocol_data["python_sample_s"])
     oracle = phase_oracle_parity(dev, card, bar)
 
@@ -1919,6 +2298,7 @@ def main(argv):
 
     leaf_t = kern["fused_adam_leaf"]["timing"]["proj/W"]
     sr_t = kern["fused_adam_leaf_sr"]["timing"]["table"]
+    deep_launches = deep["headline"]["launches"]
     kernels = [
         {"name": "fused_adam_leaf", "route": "cuda",
          "source": "graphqembed_tpu_torch/csrc/fused_adam.cu",
@@ -1937,11 +2317,12 @@ def main(argv):
          "bound_ms": sr_t["bound_ms"], "bound_by": sr_t["bound_by"],
          "library_ms": sr_t["library_ms"]},
     ]
-    # the protocol's headline run and the onthefly run are main paths of
-    # both Adam kernels
+    # the protocol's headline run, the onthefly run and the deep headline
+    # run are main paths of both Adam kernels
     for row in kernels:
         row["launches_protocol"] = protocol["headline"]["launches"][row["name"]]
         row["launches_onthefly"] = onthefly["headline"]["launches"][row["name"]]
+        row["launches_deep"] = deep_launches[row["name"]]
     rows_k = kern["fused_adam_table_sorted_rows_sr"]
     rows_t = rows_k["timing"]["bench_3i_batch"]
     kernels.append(
@@ -1963,6 +2344,7 @@ def main(argv):
          "launches": launches["scatter_rows"],
          "launches_protocol": protocol["headline"]["launches"]["scatter_rows"],
          "launches_onthefly": onthefly["headline"]["launches"]["scatter_rows"],
+         "launches_deep": deep_launches["scatter_rows"],
          **oracle_keys("scatter_rows"),
          "max_abs_err": sc["max_abs_err"],
          "ms": sc_t["ms"], "plain_ms": sc_t["plain_ms"],
@@ -1972,6 +2354,13 @@ def main(argv):
          **{f"{k}_{key}": sc["timing"][name][k]
             for key, name in (("f32", "bench_3i_batch_f32"), ("2p", "bench_2p_batch"),
                               ("1760", "table_1760"))
+            for k in ("ms", "bound_ms", "library_ms", "zeros_index_add_ms")},
+         # the deep steps' gathers (phase deep): the depth-1 neighbors on the
+         # bench and protocol tables, depth 2's neighbors of neighbors
+         **{f"{k}_{key}": deep["scatter"][name][k]
+            for key, name in (("d1_81920", "bench_d1_81920_ids"),
+                              ("d1_81920_1760", "protocol_d1_81920_ids"),
+                              ("d2_2621440", "bench_d2_2621440_ids"))
             for k in ("ms", "bound_ms", "library_ms", "zeros_index_add_ms")}})
     main_path = {"fused_intersection": eval_launches["fused_intersection"],
                  "gather_normalize": kb["launches"]["gather_normalize"],

@@ -2,7 +2,10 @@
 graphqembed_tpu_torch.cli.evaluate`): load model_dir/best and
 model_dir/config.json, score a query split of --data_dir, and print AUC
 (one sampled negative), hard AUC and APR per structure. Runs on the card;
---cpu runs on the CPU."""
+--cpu runs on the CPU. A model dir trained with --depth > 0 is refused:
+its SAGE encoder needs the neighbor tables the training run drew, which
+the model dir does not hold (the JAX package's gqe-eval scores such a
+model with the direct encoder instead)."""
 
 from __future__ import annotations
 
@@ -34,6 +37,13 @@ def main(argv=None):
 
     model_dir = Path(args.model_dir)
     cfg = GQEConfig.from_json((model_dir / "config.json").read_text())
+    if cfg.depth > 0:
+        raise SystemExit(
+            f"gqe-torch-eval: {model_dir} was trained with --depth "
+            f"{cfg.depth}; its SAGE encoder needs the training run's neighbor "
+            "tables, which a model dir does not hold, and scoring it with "
+            "the direct encoder would not score the model trained. Its "
+            "metrics.json holds the final AUC and APR")
     state, meta = load_checkpoint(model_dir / "best",
                                   device="cpu" if args.cpu else "cuda")
     params = state["params"]

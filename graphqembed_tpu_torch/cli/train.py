@@ -12,9 +12,11 @@ Runs on the card; --cpu runs on the CPU (every kernel replaced by its plain
 PyTorch version). Without a card and without --cpu it exits non-zero.
 --pipeline onthefly samples every training batch on the device
 (training/device_sampler.py) and reads no training queries from
---data_dir. Not ported yet, and refused naming the ROADMAP item:
---pipeline stream (Queue 1 item 10), --depth > 0 (item 9), --mesh N > 1
-(item 11).
+--data_dir. --depth 1 or 2 trains the SAGE encoder (models/encoders.py,
+--aggregator mean or pool) over neighbor tables of --neighbor_samples
+neighbors per relation, on the host, device and onthefly pipelines and in
+the final evals. Not ported yet, and refused naming the ROADMAP item:
+--pipeline stream (Queue 1 item 10), --mesh N > 1 (item 11).
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ import torch
 UNPORTED = {
     "stream": "--pipeline stream (the beyond-RAM stream) is not ported yet: "
               "ROADMAP Queue 1 item 10",
-    "depth": "--depth > 0 (the SAGE encoder) is not ported yet: ROADMAP "
-             "Queue 1 item 9",
     "mesh": "--mesh N > 1 (the distributed trainer) is not ported yet: "
             "ROADMAP Queue 1 item 11",
 }
@@ -62,8 +62,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--simple_inter", action="store_true",
                    help="SimpleSetIntersection (no learned transforms)")
     p.add_argument("--depth", type=int, default=0,
-                   help="0=direct embeddings; >0 SAGE-style deep encoder "
-                        "(not ported yet)")
+                   help="0=direct embeddings; 1 or 2: the SAGE encoder of "
+                        "that depth")
     p.add_argument("--aggregator", type=str, default="mean",
                    choices=["mean", "pool"])
     p.add_argument("--neighbor_samples", type=int, default=8,
@@ -189,8 +189,9 @@ def main(argv=None):
             "host loop keeps float32 storage)")
     if args.pipeline == "stream":
         raise SystemExit(UNPORTED["stream"])
-    if args.depth > 0:
-        raise SystemExit(UNPORTED["depth"])
+    if not 0 <= args.depth <= 2:
+        raise SystemExit(f"--depth {args.depth}: the SAGE encoder takes 0, 1 "
+                         "or 2")
     device = _device(args)
 
     n_mesh = args.mesh
@@ -203,6 +204,7 @@ def main(argv=None):
         raise SystemExit(UNPORTED["mesh"])
 
     from graphqembed_tpu_torch.config import GQEConfig
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
     from graphqembed_tpu_torch.models.params import init_params
     from graphqembed_tpu_torch.training import eval_apr, eval_auc, run_train
     from graphqembed_tpu_torch.training.checkpoint import (
@@ -252,6 +254,10 @@ def main(argv=None):
                  len(val or []))
     params = init_params(cfg, graph.schema,
                          torch.Generator().manual_seed(cfg.seed), device=device)
+    tables = None
+    if cfg.depth > 0:
+        tables = NeighborTables.build(graph, sample_size=args.neighbor_samples,
+                                      seed=cfg.seed).to(device)
     # None = each driver's default (FusedAdamOpt: SR for a bfloat16 table)
     optimizer = SGDOpt(cfg.lr) if args.opt == "sgd" else None
     mgr = None
@@ -271,18 +277,21 @@ def main(argv=None):
         res = run_train_onthefly(
             cfg, graph.schema, params, dg, val_queries=val,
             steps_per=dispatch_steps_per(args.max_iter), optimizer=optimizer,
-            ckpt_manager=mgr, ckpt_every=args.ckpt_every, resume=args.resume,
-            device=device, log=log)
+            neighbor_tables=tables, ckpt_manager=mgr,
+            ckpt_every=args.ckpt_every, resume=args.resume, device=device,
+            log=log)
     elif args.pipeline == "device":
         data = DeviceTrainData(graph.schema, train, device=device)
         res = run_train_device_mega(
             cfg, graph.schema, params, data, val_queries=val,
             steps_per=dispatch_steps_per(args.max_iter), optimizer=optimizer,
-            ckpt_manager=mgr, ckpt_every=args.ckpt_every, resume=args.resume,
-            device=device, log=log)
+            neighbor_tables=tables, ckpt_manager=mgr,
+            ckpt_every=args.ckpt_every, resume=args.resume, device=device,
+            log=log)
     else:
         res = run_train(cfg, graph.schema, params, train, val_queries=val,
-                        ckpt_manager=mgr, ckpt_every=args.ckpt_every,
+                        neighbor_tables=tables, ckpt_manager=mgr,
+                        ckpt_every=args.ckpt_every,
                         resume=args.resume, metrics=writer,
                         optimizer=optimizer, device=device)
     writer.close()
@@ -297,11 +306,13 @@ def main(argv=None):
         metrics["timings"] = res.timings
     if val:
         metrics["final_auc"] = eval_auc(cfg, res.best_params, graph.schema, val,
-                                        seed=cfg.seed)
+                                        seed=cfg.seed, neighbor_tables=tables)
         metrics["final_auc_hard"] = eval_auc(cfg, res.best_params, graph.schema,
-                                             val, seed=cfg.seed, hard=True)
+                                             val, seed=cfg.seed, hard=True,
+                                             neighbor_tables=tables)
         metrics["final_apr"] = eval_apr(cfg, res.best_params, graph.schema, val,
-                                        max_negs=cfg.max_eval_negs)
+                                        max_negs=cfg.max_eval_negs,
+                                        neighbor_tables=tables)
     (model_dir / "metrics.json").write_text(json.dumps(metrics, indent=2))
     save_checkpoint(model_dir / "best", res.best_params, step=res.steps)
     logging.info("done: %s", json.dumps(metrics))

@@ -18,7 +18,10 @@ soft-and baseline) take rels as a sequence of batch-constant relation ids
 and one intersection mode id: each a Python int, or a 0-d tensor selected on
 the device (never a host sync). Under cfg.use_pallas the intersection runs
 the hand-written `fused_intersection` kernel (ops/kernels.py), which is
-forward only. Mixed-formula rows (`*_rows`, `embed_query_folded`) carry
+forward only. Every entry point that encodes nodes takes `encode_fn` (ids
+[...] -> [..., d]); None is the direct encoder (`encode`: table-row gather
++ L2 norm), and models/encoders.py::make_deep_encoder gives the depth > 0
+SAGE encoder. Mixed-formula rows (`*_rows`, `embed_query_folded`) carry
 rels [B, R] and inter_modes [B] per row, and each row's operator is selected
 from the stacked parameters. `structure` is a plain Python string, so each
 structure runs its own straight-line code.
@@ -118,15 +121,22 @@ def intersect(cfg: GQEConfig, params: Params, zs: list[torch.Tensor],
     return agg
 
 
+def _encoder(params: Params, encode_fn):
+    """encode_fn, or the direct encoder over params["table"]."""
+    return encode_fn or (lambda ids: encode(params["table"], ids))
+
+
 def embed_query(cfg: GQEConfig, params: Params, structure: str,
-                anchors: torch.Tensor, rels, inter_mode_id) -> torch.Tensor:
+                anchors: torch.Tensor, rels, inter_mode_id,
+                encode_fn=None) -> torch.Tensor:
     """Query embedding [B, d] for one formula batch.
 
     anchors [B, A]; rels a sequence of R batch-constant relation ids
     (application order); inter_mode_id a batch constant (−1 for chains,
-    ignored). Nodes are encoded by table-row gather + L2 norm (the depth>0
-    SAGE encoder is not ported yet)."""
-    e = lambda i: encode(params["table"], anchors[:, i])  # noqa: E731
+    ignored). encode_fn encodes the anchors (None: the direct encoder),
+    one call per anchor column, as in JAX."""
+    enc = _encoder(params, encode_fn)
+    e = lambda i: enc(anchors[:, i])  # noqa: E731
     P = lambda x, r: project(cfg, params, x, r)  # noqa: E731
     I = lambda zs: intersect(cfg, params, zs, inter_mode_id)  # noqa: E731,E741
     if structure == "1p":
@@ -305,10 +315,11 @@ def embed_query_folded(cfg: GQEConfig, params: Params, structure: str,
 
 def embed_query_rows(cfg: GQEConfig, params: Params, structure: str,
                      anchors: torch.Tensor, rels: torch.Tensor,
-                     inter_modes: torch.Tensor) -> torch.Tensor:
+                     inter_modes: torch.Tensor, encode_fn=None) -> torch.Tensor:
     """Mixed-formula query embedding: anchors [B, A], rels [B, R],
-    inter_modes [B] -> [B, d]. All A anchors are encoded in one call."""
-    E = encode(params["table"], anchors)  # [B, A, d]
+    inter_modes [B] -> [B, d]. All A anchors are encoded in one call of
+    encode_fn (None: the direct encoder)."""
+    E = _encoder(params, encode_fn)(anchors)  # [B, A, d]
     return embed_query_folded(cfg, params, structure, E, rels, inter_modes)
 
 
@@ -359,13 +370,21 @@ def margin_loss_rows_onegather(cfg: GQEConfig, params: Params, structure: str,
                                anchors: torch.Tensor, rels: torch.Tensor,
                                inter_modes: torch.Tensor,
                                targets: torch.Tensor, negs: torch.Tensor,
-                               row_mask: torch.Tensor) -> torch.Tensor:
-    """Margin loss with ONE table gather for anchors, target and negative,
-    so the backward builds a single dense table gradient."""
+                               row_mask: torch.Tensor,
+                               encode_fn=None) -> torch.Tensor:
+    """Margin loss with ONE encoder call for anchors, target and negative:
+    under the direct encoder one table gather, so the backward builds a
+    single dense table gradient; under encode_fn (the SAGE encoder) one
+    call over [B, A+2] ids, whose gathers each carry all A+2 columns. The
+    same value as margin_loss_rows; only the order of the table
+    gradient's sums differs."""
     ids = torch.cat([anchors, targets[:, None], negs[:, None]], dim=1)
-    rows = take_rows(params["table"], ids)              # [B, A+2, d]
     a = anchors.shape[1]
-    normed = l2_normalize(rows.float())
+    if encode_fn is None:
+        rows = take_rows(params["table"], ids)          # [B, A+2, d]
+        normed = l2_normalize(rows.float())
+    else:
+        normed = encode_fn(ids).float()
     q = embed_query_folded(cfg, params, structure, normed[:, :a], rels,
                            inter_modes)
     pn = score(q, normed[:, a:], cfg.scoring)
@@ -375,31 +394,38 @@ def margin_loss_rows_onegather(cfg: GQEConfig, params: Params, structure: str,
 def margin_loss_rows(cfg: GQEConfig, params: Params, structure: str,
                      anchors: torch.Tensor, rels: torch.Tensor,
                      inter_modes: torch.Tensor, targets: torch.Tensor,
-                     negs: torch.Tensor, row_mask: torch.Tensor) -> torch.Tensor:
+                     negs: torch.Tensor, row_mask: torch.Tensor,
+                     encode_fn=None) -> torch.Tensor:
     """Mixed-formula margin loss with separate encoder calls for anchors,
-    targets and negatives (the form a custom encoder will need)."""
-    q = embed_query_rows(cfg, params, structure, anchors, rels, inter_modes)
-    pos = score(q, encode(params["table"], targets), cfg.scoring)
-    neg = score(q, encode(params["table"], negs), cfg.scoring)
+    targets and negatives, as JAX's (margin_loss_rows_onegather folds
+    them into one)."""
+    enc = _encoder(params, encode_fn)
+    q = embed_query_rows(cfg, params, structure, anchors, rels, inter_modes,
+                         encode_fn)
+    pos = score(q, enc(targets), cfg.scoring)
+    neg = score(q, enc(negs), cfg.scoring)
     return _masked_margin(cfg, pos, neg, row_mask)
 
 
 def forward_scores(cfg: GQEConfig, params: Params, structure: str,
                    anchors: torch.Tensor, rels, inter_mode_id,
-                   candidates: torch.Tensor) -> torch.Tensor:
+                   candidates: torch.Tensor, encode_fn=None) -> torch.Tensor:
     """Scores of candidate nodes for one formula batch: candidates [B] ->
     [B], or [B, K] -> [B, K]."""
-    q = embed_query(cfg, params, structure, anchors, rels, inter_mode_id)
-    return score(q, encode(params["table"], candidates), cfg.scoring)
+    q = embed_query(cfg, params, structure, anchors, rels, inter_mode_id,
+                    encode_fn)
+    return score(q, _encoder(params, encode_fn)(candidates), cfg.scoring)
 
 
 def margin_loss(cfg: GQEConfig, params: Params, structure: str,
                 anchors: torch.Tensor, rels, inter_mode_id,
                 targets: torch.Tensor, negs: torch.Tensor,
-                row_mask: torch.Tensor) -> torch.Tensor:
+                row_mask: torch.Tensor, encode_fn=None) -> torch.Tensor:
     """Mean max-margin loss over valid rows of one formula batch; negs [B]
     (one per query)."""
-    q = embed_query(cfg, params, structure, anchors, rels, inter_mode_id)
-    pos = score(q, encode(params["table"], targets), cfg.scoring)
-    neg = score(q, encode(params["table"], negs), cfg.scoring)
+    enc = _encoder(params, encode_fn)
+    q = embed_query(cfg, params, structure, anchors, rels, inter_mode_id,
+                    encode_fn)
+    pos = score(q, enc(targets), cfg.scoring)
+    neg = score(q, enc(negs), cfg.scoring)
     return _masked_margin(cfg, pos, neg, row_mask)

@@ -8,6 +8,9 @@ Shapes:
   proj/bilinear:W  [R, d, d]       P_r(q) = q @ W_r     (row-vector convention)
   inter/pre:    [M, d, d]          h_i = relu(z_i @ pre_m)
   inter/post:   [M, d, d]          out = Φ(h_i) @ post_m, Φ ∈ {min, mean}
+  encoder/W_self [M, d, d], encoder/W_rel, encoder/W_pool [R, d, d]
+                                   the depth > 0 SAGE encoder
+                                   (models/encoders.py)
 
 Leaves are ordered as JAX flattens a dict (sorted keys, depth first), so a
 leaf's index is the same in both packages (the stochastic-rounding seed of
@@ -24,6 +27,7 @@ import torch
 from graphqembed_tpu_torch.config import GQEConfig
 from graphqembed_tpu_torch.device import resolve_device
 from graphqembed_tpu_torch.graph.schema import Schema
+from graphqembed_tpu_torch.models.encoders import init_encoder_params
 
 
 def tree_paths(tree: dict, prefix: str = "") -> list[tuple[str, object]]:
@@ -60,9 +64,10 @@ def init_params(cfg: GQEConfig, schema: Schema,
     """Fresh parameters drawn from `generator` (a CPU generator; the draws are
     moved to `device`). The distributions match the JAX package's: a
     unit-normal table in cfg.storage_dtype, xavier-uniform bilinear and
-    intersection operators. The numbers differ, since the generators do."""
-    if cfg.depth != 0:
-        raise NotImplementedError("the depth>0 SAGE encoder is not ported yet")
+    intersection operators, and at depth > 0 xavier-uniform encoder weights
+    (`init_encoder_params`). The numbers differ, since the generators do.
+    The encoder is drawn after every other leaf, so the other leaves' bytes
+    do not depend on the depth."""
     dev = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(
         cfg.seed)
@@ -86,6 +91,8 @@ def init_params(cfg: GQEConfig, schema: Schema,
         params["proj"] = {"W": xavier(r, d, d)}
     if cfg.learned_intersection:
         params["inter"] = {"pre": xavier(m, d, d), "post": xavier(m, d, d)}
+    if cfg.depth > 0:
+        params["encoder"] = init_encoder_params(cfg, schema, g)
     return tree_map(lambda x: x.to(dev).requires_grad_(True), params)
 
 

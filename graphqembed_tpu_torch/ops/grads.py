@@ -57,19 +57,28 @@ def scatter_rows_sorted_plain(n: int, sorted_ids: torch.Tensor,
     """g [n, d] in ct's dtype from a stable sort of the ids (sorted_ids,
     order): g[r] = Σ ct[order[j]] over the sorted positions j with
     sorted_ids[j] == r, added in sorted order starting from 0. One
-    index_add_ per occurrence rank within a run of equal ids: inside one
-    call every index is distinct, so no two additions meet, on the CPU or
-    on the card."""
+    index_add_ per occurrence rank k within a run of equal ids, over the
+    runs longer than k: inside one call every index is distinct, so no two
+    additions meet, on the CPU or on the card. The runs are ordered by
+    falling length, so the runs of call k are a prefix: the work is
+    O(ids), also when one row (a padding row) takes most of them."""
     g = torch.zeros((n,) + tuple(ct.shape[1:]), dtype=ct.dtype,
                     device=ct.device)
     if sorted_ids.numel() == 0:
         return g
     rows = ct[order]
-    rank = (torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
-            - torch.searchsorted(sorted_ids, sorted_ids))
-    for k in range(int(rank.max()) + 1):
-        sel = rank == k
-        g.index_add_(0, sorted_ids[sel], rows[sel])
+    pos = torch.arange(sorted_ids.shape[0], device=sorted_ids.device)
+    first = pos == torch.searchsorted(sorted_ids, sorted_ids)
+    starts = pos[first]
+    lengths = torch.diff(starts, append=pos[-1:] + 1)
+    by_len = torch.argsort(lengths, descending=True, stable=True)
+    starts, lengths, run_ids = starts[by_len], lengths[by_len], sorted_ids[
+        first][by_len]
+    # runs longer than k: the first counts[k] of them
+    counts = torch.searchsorted(-lengths, -torch.arange(
+        int(lengths[0]), device=lengths.device)).tolist()
+    for k, m in enumerate(counts):
+        g.index_add_(0, run_ids[:m], rows[starts[:m] + k])
     return g
 
 

@@ -9,13 +9,15 @@ between them.
 - hard negatives: intersection structures draw the negative from the hard
   pool on the steps `_hard_step` picks;
 - the step (`_train_body`): one table gather, the folded query DAG, margin
-  loss, backward, then the optimizer writes every leaf in place. Two
+  loss, backward, then the optimizer writes every leaf in place. Three
   formulations: the one-gather dense step (a dense [N, d] table gradient
-  for the SR table kernel) and, under cfg.rows_grad_update with bfloat16
+  for the SR table kernel); under cfg.rows_grad_update with bfloat16
   storage, the ROWS step: differentiate with respect to the gathered rows
   and let the sorted-rows kernel update the table with dense-Adam
   semantics (`FusedAdamOpt.apply_rows`), the ids of a whole chunk sorted
-  once up front (`_augment_rows_fast`);
+  once up front (`_augment_rows_fast`); and at cfg.depth > 0 the deep
+  step: the SAGE encoder (models/encoders.py) over `neighbor_tables`, one
+  encoder call for anchors, target and negative;
 - `make_scan_train_step_sparse`: the table under lazy sparse Adam
   (training/sparse_adam.py), O(touched rows) per step;
 - multitask: `make_multitask_mega_step` (rounds over the structures),
@@ -43,6 +45,7 @@ from graphqembed_tpu_torch.data.queries import STRUCT_SHAPE, Query
 from graphqembed_tpu_torch.device import check_placed, resolve_device
 from graphqembed_tpu_torch.graph.schema import Schema
 from graphqembed_tpu_torch.models import gqe
+from graphqembed_tpu_torch.models.encoders import deep_tables, make_deep_encoder
 from graphqembed_tpu_torch.models.params import (
     tree_clone,
     tree_leaves,
@@ -354,19 +357,25 @@ def _augment_rows_fast(batch_xs: dict, n_table: int) -> dict:
 
 
 def _train_body(cfg: GQEConfig, optimizer: FusedAdamOpt, structure: str,
-                weight: float):
+                weight: float, tables=None):
     """One training step on one pre-selected batch (a dict of [B, ...]
-    tensors): carry (params, opt_state) -> (carry, loss). Two formulations:
+    tensors): carry (params, opt_state) -> (carry, loss). Three
+    formulations:
 
     1. rows step (`_rows_fast`): gather the rows, differentiate with respect
        to them and the small leaves, and let `FusedAdamOpt.apply_rows` update
        the table from the row gradients: no [N, d] gradient exists;
-    2. one-gather dense step: one table gather, one dense table gradient.
-       A batch may carry a row "mask" (the on-device sampler's validity
-       mask, training/device_sampler.py); masked rows add no loss. The
-       rows step takes no mask: its batches come from the pools, whose
-       rows are all real queries."""
+    2. one-gather dense step: one table gather, one dense table gradient;
+    3. deep step (cfg.depth > 0, `tables` placed on the batch's device):
+       the one-gather loss with the SAGE encoder as its encode_fn, one
+       encoder call over every id of the batch (depth + 1 table gathers,
+       so depth + 1 dense table gradients).
+    A batch may carry a row "mask" (the on-device sampler's validity mask,
+    training/device_sampler.py); masked rows add no loss. The rows step
+    takes no mask: its batches come from the pools, whose rows are all
+    real queries."""
     rows_fast = _rows_fast(cfg, optimizer)
+    tables = deep_tables(cfg, tables)
 
     def body(carry, batch):
         params, opt_state = carry
@@ -387,9 +396,14 @@ def _train_body(cfg: GQEConfig, optimizer: FusedAdamOpt, structure: str,
         if mask is None:  # pool rows are all real queries
             mask = torch.ones(b, dtype=torch.bool,
                               device=batch["targets"].device)
+        encode_fn = None
+        if tables is not None:
+            encode_fn = make_deep_encoder(cfg, params, tables, cfg.depth,
+                                          cfg.aggregator)
         loss = weight * gqe.margin_loss_rows_onegather(
             cfg, params, structure, batch["anchors"], batch["rels"],
-            batch["inter_modes"], batch["targets"], batch["negs"], mask)
+            batch["inter_modes"], batch["targets"], batch["negs"], mask,
+            encode_fn=encode_fn)
         # a leaf the structure does not use (inter/* for chains) gets a zero
         # gradient, and Adam still decays its moments, as in JAX
         grads = _grads_tree(params, torch.autograd.grad(
@@ -421,10 +435,6 @@ def _check_storage_optimizer(cfg: GQEConfig, optimizer):
         raise ValueError(
             "storage_dtype=bfloat16 requires the stochastic-rounding "
             f"optimizer (FusedAdamOpt); got {type(optimizer).__name__}")
-    if cfg.depth != 0:
-        raise NotImplementedError(
-            "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
 
 
 def default_optimizer(cfg: GQEConfig, lr=None) -> FusedAdamOpt:
@@ -433,14 +443,18 @@ def default_optimizer(cfg: GQEConfig, lr=None) -> FusedAdamOpt:
     return FusedAdamOpt(cfg.lr if lr is None else lr)
 
 
-def make_scan_train_step(cfg: GQEConfig, optimizer):
+def make_scan_train_step(cfg: GQEConfig, optimizer, neighbor_tables=None):
     """Returns run(params, opt_state, pool, structure, generator, n_steps,
     weight, use_hard) -> (params, opt_state, mean_loss): n_steps training
     steps on batches drawn from `pool` with `generator`. use_hard draws the
     negative from the hard pool on `_hard_step` steps (intersection
     structures). params and the optimizer state are updated in place;
-    mean_loss is a 0-d tensor on the device."""
+    mean_loss is a 0-d tensor on the device. neighbor_tables
+    (models/encoders.py::NeighborTables) drives the SAGE encoder at
+    cfg.depth > 0, where it is required; they are placed on the pool's
+    device (a no-op for tables placed there already)."""
     _check_storage_optimizer(cfg, optimizer)
+    tables = deep_tables(cfg, neighbor_tables)
     gqe.set_matmul_precision(cfg)
 
     def run(params, opt_state, pool: DevicePool, structure: str,
@@ -449,7 +463,8 @@ def make_scan_train_step(cfg: GQEConfig, optimizer):
         batch_xs = _select_batches(cfg, generator, n_steps, pool, use_hard)
         if _rows_fast(cfg, optimizer):
             batch_xs = _augment_rows_fast(batch_xs, params["table"].shape[0])
-        body = _train_body(cfg, optimizer, structure, weight)
+        body = _train_body(cfg, optimizer, structure, weight,
+                           None if tables is None else tables.to(pool.device))
         (params, opt_state), losses = _scan(body, (params, opt_state),
                                             batch_xs)
         return params, opt_state, losses.mean()
@@ -466,8 +481,12 @@ def make_scan_train_step_sparse(cfg: GQEConfig, small_optimizer):
     the same update as the optax.adam the JAX package passes). Returns
     run(small_params, table, table_state, opt_state, pool, structure,
     generator, n_steps, weight, use_hard) -> (small_params, table,
-    table_state, opt_state, mean_loss); everything is updated in place."""
+    table_state, opt_state, mean_loss); everything is updated in place.
+    The direct encoder only: its loss reads the gathered rows."""
     _check_storage_optimizer(cfg, small_optimizer)
+    if cfg.depth > 0:
+        raise ValueError("the lazy sparse table step takes the direct "
+                         f"encoder (depth 0); cfg.depth={cfg.depth}")
     gqe.set_matmul_precision(cfg)
 
     def run(small_params, table, table_state, opt_state, pool: DevicePool,
@@ -514,13 +533,11 @@ def make_multitask_mega_step(cfg: GQEConfig, optimizer,
     derived_generator(*key, r, si), as JAX's key is fold_in(fold_in(key, r),
     si), so a call equals the same sequence of single-structure calls. key
     is an int seed or a tuple of ints (the driver passes (seed, dispatch_i),
-    as JAX folds the dispatch index into its key).
+    as JAX folds the dispatch index into its key). neighbor_tables drives
+    the SAGE encoder at cfg.depth > 0 (make_scan_train_step).
 
     Returns run(params, opt_state, key, n_rounds, steps_per)
     -> (params, opt_state, losses [n_rounds, n_structures] on the device)."""
-    if neighbor_tables is not None:
-        raise NotImplementedError(
-            "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 item 9)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
@@ -531,7 +548,7 @@ def make_multitask_mega_step(cfg: GQEConfig, optimizer,
     use_hards = [s in INTERSECT_STRUCTURES and cfg.hard_neg_alternate
                  for s in structures]
     pools = [data.pools[s] for s in structures]
-    scan = make_scan_train_step(cfg, optimizer)
+    scan = make_scan_train_step(cfg, optimizer, neighbor_tables)
 
     def run(params, opt_state, key, n_rounds: int, steps_per: int):
         path = key if isinstance(key, tuple) else (key,)
@@ -553,17 +570,21 @@ def make_multitask_mega_step(cfg: GQEConfig, optimizer,
 def run_train_device(cfg: GQEConfig, schema: Schema, params: dict,
                      data: DeviceTrainData, total_steps: int,
                      burn_in_steps: int = 0, chunk: int = 50,
-                     seed: int | None = None, log=None):
+                     seed: int | None = None, log=None,
+                     neighbor_tables=None):
     """Burn-in (1p only) then weighted round-robin multitask, `chunk` steps
     per call of the scan step, in JAX's order. Dispatch i draws its batches
-    from derived_generator(seed, i) (JAX folds i into its key). Returns
+    from derived_generator(seed, i) (JAX folds i into its key).
+    neighbor_tables drives the SAGE encoder at cfg.depth > 0. Returns
     (params, opt_state, losses_by_structure): per structure, the mean loss
     of each of its chunks as Python floats (read once, at the end, so the
     loop never waits for the card). log(done, structure, loss) gets the
     chunk's loss as a device tensor, for the same reason."""
     optimizer = default_optimizer(cfg)
     opt_state = optimizer.init(params)
-    scan = make_scan_train_step(cfg, optimizer)
+    if neighbor_tables is not None:
+        neighbor_tables = neighbor_tables.to(params["table"].device)
+    scan = make_scan_train_step(cfg, optimizer, neighbor_tables)
     seed = cfg.seed if seed is None else seed
     losses: dict[str, list] = {s: [] for s in data.structures}
     done = 0
@@ -620,13 +641,12 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
       AFTER burn-in and merged into `data`, so the non-1p pools can be built
       while burn-in trains;
     - val_queries may be a callable too, resolved at the first eval;
+    - neighbor_tables: the SAGE encoder at cfg.depth > 0, in the steps and
+      in the evals (placed on `device` once);
     - queries_per_sec counts this session's steps over this session's train
       seconds; timings has the seconds per phase and session_steps."""
     import time
 
-    if neighbor_tables is not None:
-        raise NotImplementedError(
-            "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 item 9)")
     if mesh is not None:
         raise NotImplementedError(
             "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
@@ -635,13 +655,15 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
     check_placed(dev, "params", params["table"])
     for s, pool in data.pools.items():
         check_placed(dev, f"the {s} pool", pool.anchors)
+    tables = None if neighbor_tables is None else neighbor_tables.to(dev)
     total_steps = total_steps if total_steps is not None else cfg.max_iter
     burn_in_steps = (burn_in_steps if burn_in_steps is not None
                      else min(cfg.max_burn_in, total_steps))
     optimizer = optimizer or default_optimizer(cfg)
     opt_state = optimizer.init(params)
     seed = cfg.seed if seed is None else seed
-    mega_burn = (make_multitask_mega_step(cfg, optimizer, data, ["1p"])
+    mega_burn = (make_multitask_mega_step(cfg, optimizer, data, ["1p"],
+                                          neighbor_tables=tables)
                  if "1p" in data.pools else None)
     # mega_all is built AFTER burn-in (below): with deferred_pools, the
     # non-1p pools may still be building while burn-in runs
@@ -727,7 +749,8 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
             losses.setdefault(s, [])
 
     # --- multitask rounds with eval / ckpt / convergence ---
-    mega_all = make_multitask_mega_step(cfg, optimizer, data)
+    mega_all = make_multitask_mega_step(cfg, optimizer, data,
+                                        neighbor_tables=tables)
     n_struct = len(data.structures)
     eval_every = max(1, min(cfg.val_every, total_steps - done)
                      ) if total_steps > done else 1
@@ -742,7 +765,8 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
             val_queries = resolve_queries(val_queries)
             t_val_wait += time.time() - te
             te = time.time()
-            aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed)
+            aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed,
+                            neighbor_tables=tables)
             t_eval += time.time() - te
             macro = aucs.get("macro", 0.0)
             val_history.append((done, macro))
@@ -759,7 +783,8 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
         # burn-in took the whole budget (or total_steps == 0): evaluate
         # once so best_val_auc is never a meaningless -1
         val_queries = resolve_queries(val_queries)
-        aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed)
+        aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed,
+                        neighbor_tables=tables)
         macro = aucs.get("macro", 0.0)
         val_history.append((done, macro))
         best_macro, best_params = macro, params

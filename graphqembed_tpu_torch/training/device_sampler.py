@@ -57,7 +57,7 @@ from graphqembed_tpu_torch.device import check_placed, resolve_device
 from graphqembed_tpu_torch.graph.graph import Graph
 from graphqembed_tpu_torch.graph.schema import Schema
 from graphqembed_tpu_torch.models import gqe
-from graphqembed_tpu_torch.models.encoders import NeighborTables
+from graphqembed_tpu_torch.models.encoders import NeighborTables, deep_tables
 from graphqembed_tpu_torch.models.params import tree_clone
 from graphqembed_tpu_torch.training.device_data import (
     _check_storage_optimizer,
@@ -562,6 +562,8 @@ def make_onthefly_train_step(cfg: GQEConfig, optimizer, dg: DeviceGraph,
     use_hard: §2.5's hard-negative alternation, on the steps
     device_data._hard_step picks (strict parity at hard_neg_frac=0.5); rows
     where no hard candidate was found keep the plain negative.
+    neighbor_tables drives the SAGE encoder at cfg.depth > 0 (required
+    there; placed on the device graph's device).
 
     Returns run(params, opt_state, structure, generator, n_steps, weight,
     use_hard) -> (params, opt_state, mean_loss), everything updated in
@@ -570,10 +572,10 @@ def make_onthefly_train_step(cfg: GQEConfig, optimizer, dg: DeviceGraph,
         raise NotImplementedError(
             "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
             "parallel/)")
-    if neighbor_tables is not None:
-        raise NotImplementedError(
-            "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 item 9)")
     _check_storage_optimizer(cfg, optimizer)
+    tables = deep_tables(cfg, neighbor_tables)
+    if tables is not None:
+        tables = tables.to(dg.device)
     gqe.set_matmul_precision(cfg)
     dense = dataclasses.replace(cfg, rows_grad_update=False)
 
@@ -581,7 +583,7 @@ def make_onthefly_train_step(cfg: GQEConfig, optimizer, dg: DeviceGraph,
             n_steps: int, weight: float, use_hard: bool = False):
         batch_xs = sample_dispatch(cfg, dg, torch_draw(generator), structure,
                                    n_steps, use_hard)
-        body = _train_body(dense, optimizer, structure, weight)
+        body = _train_body(dense, optimizer, structure, weight, tables)
         (params, opt_state), losses = _scan(body, (params, opt_state),
                                             batch_xs)
         return params, opt_state, losses.mean()
@@ -614,7 +616,8 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
     and the next eval step, so a resumed run draws, trains and evaluates as
     an uninterrupted one. queries_per_sec counts this session's steps over
     this session's train seconds; timings has the seconds per phase and
-    session_steps. Returns a training/loop.py::TrainResult."""
+    session_steps. neighbor_tables drives the SAGE encoder at cfg.depth >
+    0, in the steps and the evals. Returns a training/loop.py::TrainResult."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
@@ -628,6 +631,8 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
     optimizer = optimizer or default_optimizer(cfg)
     opt_state = optimizer.init(params)
     seed = cfg.seed if seed is None else seed
+    if neighbor_tables is not None:
+        neighbor_tables = neighbor_tables.to(dev)
     step_fn = make_onthefly_train_step(cfg, optimizer, dg,
                                        neighbor_tables=neighbor_tables)
     structures = list(STRUCTURES)
@@ -700,8 +705,8 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
         nonlocal val_queries, t_eval
         te = time.time()
         val_queries = resolve_queries(val_queries)
-        macro = eval_auc(cfg, params, schema, val_queries,
-                         seed=cfg.seed).get("macro", 0.0)
+        macro = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed,
+                         neighbor_tables=neighbor_tables).get("macro", 0.0)
         t_eval += time.time() - te
         val_history.append((done, macro))
         return macro

@@ -16,11 +16,16 @@ Two routes, chosen as in JAX by `neighbor_tables`:
   into one set of arrays and scored by the mixed-formula rows path in one
   call per structure; the scores come to the host once per structure and
   the metrics are taken there in numpy.
-- not None (with cfg.depth == 0 the JAX tests pass a sentinel object): the
-  per-formula route, one padded batch per formula and `eval_batch_size`
-  queries, through `embed_query`. Under cfg.use_pallas its intersections run
-  the fused CUDA kernel.
-cfg.depth > 0 (the SAGE encoder) is not ported yet and raises.
+- not None: the per-formula route, one padded batch per formula and
+  `eval_batch_size` queries, through `embed_query`. Under cfg.use_pallas
+  its intersections run the fused CUDA kernel. At cfg.depth == 0 the
+  tables are not read (the JAX tests pass a sentinel object); at
+  cfg.depth > 0 nodes are encoded by the SAGE encoder over them
+  (models/encoders.py). Its encoding of a node depends only on the
+  parameters and the fixed tables, so each eval call encodes every node
+  once (`_deep_encodings`) and the batches gather from that.
+cfg.depth > 0 without tables raises: the JAX package would score the
+direct encoder there (its fast route), which is not the model trained.
 
 Scoring runs under torch.no_grad(): the parameter leaves carry
 requires_grad, and the fused intersection kernel has no gradient.
@@ -35,6 +40,7 @@ from graphqembed_tpu_torch.config import INTERSECT_STRUCTURES, GQEConfig
 from graphqembed_tpu_torch.data.queries import Query, group_by_formula, make_batch
 from graphqembed_tpu_torch.graph.schema import Schema
 from graphqembed_tpu_torch.models import gqe
+from graphqembed_tpu_torch.models.encoders import deep_tables, sage_encode
 
 
 def auc_from_scores(pos: torch.Tensor, neg: torch.Tensor,
@@ -65,12 +71,24 @@ def percentile_ranks(pos: torch.Tensor, negs: torch.Tensor,
                        torch.full_like(num, 0.5))
 
 
-def _check_ported(cfg: GQEConfig) -> None:
-    if cfg.depth > 0:
-        raise NotImplementedError(
-            "eval with cfg.depth > 0 needs the SAGE encoder "
-            "(models/encoders.py), which is not ported yet: ROADMAP.md "
-            "Queue 1 item 9")
+# Most level-0 rows one chunk of _deep_encodings gathers.
+_ENCODE_ROWS = 1 << 20
+
+
+def _deep_encodings(cfg: GQEConfig, params, neighbor_tables):
+    """encode_fn for the deep per-formula route: every node's SAGE encoding
+    [N, d], computed once per eval call in chunks of at most _ENCODE_ROWS
+    level-0 rows, gathered by id."""
+    table = params["table"]
+    tables = neighbor_tables.to(table.device)
+    fan = (tables.mode_rel_ids.shape[1] * tables.sample_size) ** cfg.depth
+    chunk = max(1, _ENCODE_ROWS // fan)
+    ids = torch.arange(table.shape[0], device=table.device)
+    h = torch.cat([sage_encode(cfg, table, params["encoder"], tables,
+                               ids[i:i + chunk], depth=cfg.depth,
+                               aggregator=cfg.aggregator)
+                   for i in range(0, table.shape[0], chunk)])
+    return lambda x: h[x]
 
 
 def _on(params, x, dtype=torch.int64) -> torch.Tensor:
@@ -82,21 +100,32 @@ def _on(params, x, dtype=torch.int64) -> torch.Tensor:
 # ---------- per-formula route ----------
 
 def _formula_scores(cfg: GQEConfig, params, structure: str, anchors, rels,
-                    inter_mode_id, targets, negs):
+                    inter_mode_id, targets, negs, encode_fn=None):
     """pos [B], neg [B, K] scores for one formula batch. rels is a sequence
-    of relation ids and inter_mode_id an int: batch constants."""
-    q = gqe.embed_query(cfg, params, structure, anchors, rels, inter_mode_id)
-    table = params["table"]
-    pos = gqe.score(q, gqe.encode(table, targets), cfg.scoring)
-    neg = gqe.score(q, gqe.encode(table, negs), cfg.scoring)
+    of relation ids and inter_mode_id an int: batch constants. encode_fn:
+    None for the direct encoder."""
+    enc = encode_fn or (lambda ids: gqe.encode(params["table"], ids))
+    q = gqe.embed_query(cfg, params, structure, anchors, rels, inter_mode_id,
+                        encode_fn)
+    pos = gqe.score(q, enc(targets), cfg.scoring)
+    neg = gqe.score(q, enc(negs), cfg.scoring)
     return pos, neg
 
 
-def _scores(cfg: GQEConfig, params, structure: str, b, negs):
+def _scores(cfg: GQEConfig, params, structure: str, b, negs, encode_fn):
     """Scores of one QueryBatch `b` against the negatives `negs` [B, K]."""
     return _formula_scores(cfg, params, structure, _on(params, b.anchors),
                            [int(r) for r in b.rels], int(b.inter_mode_id),
-                           _on(params, b.targets), _on(params, negs))
+                           _on(params, b.targets), _on(params, negs),
+                           encode_fn)
+
+
+def _formula_encoder(cfg: GQEConfig, params, neighbor_tables):
+    """The per-formula route's encode_fn: None (the direct encoder) at
+    depth 0, else every node's deep encoding."""
+    if cfg.depth == 0:
+        return None
+    return _deep_encodings(cfg, params, neighbor_tables)
 
 
 def _batches(schema: Schema, by_formula: dict, batch_size: int, neg_width: int,
@@ -268,11 +297,14 @@ def eval_auc(cfg: GQEConfig, params, schema: Schema, queries: list[Query],
              neighbor_tables=None) -> dict[str, float]:
     """Macro AUC per structure (query-count weighted over formulas) using one
     sampled negative per positive. hard=True scores hard negatives instead
-    (intersection structures only). Returns {structure: auc, 'macro': mean}."""
-    _check_ported(cfg)
+    (intersection structures only). Returns {structure: auc, 'macro': mean}.
+    neighbor_tables picks the per-formula route (module docstring); it is
+    required at cfg.depth > 0."""
+    deep_tables(cfg, neighbor_tables)
     gqe.set_matmul_precision(cfg)
     if neighbor_tables is None:
         return _eval_auc_fast(cfg, params, schema, queries, seed, hard)
+    encode_fn = _formula_encoder(cfg, params, neighbor_tables)
     rng = np.random.default_rng(seed)
     out: dict[str, float] = {}
     for structure, by_formula in sorted(_by_structure(queries).items()):
@@ -284,7 +316,7 @@ def eval_auc(cfg: GQEConfig, params, schema: Schema, queries: list[Query],
                                    hard_neg_width=1 if hard else 0, rng=rng):
             negs = b.hard_negs if hard else b.negs
             nmask = b.hard_neg_mask if hard else b.neg_mask
-            pos, neg = _scores(cfg, params, structure, b, negs)
+            pos, neg = _scores(cfg, params, structure, b, negs, encode_fn)
             auc = auc_from_scores(pos, neg[:, 0],
                                   _on(params, b.row_mask, torch.bool),
                                   _on(params, b.row_mask & nmask[:, 0], torch.bool))
@@ -301,18 +333,20 @@ def eval_apr(cfg: GQEConfig, params, schema: Schema, queries: list[Query],
              max_negs: int | None = None,
              neighbor_tables=None) -> dict[str, float]:
     """Mean percentile rank per structure over full_neg queries (negatives
-    truncated to max_negs if given: real bio-scale modes need a cap)."""
-    _check_ported(cfg)
+    truncated to max_negs if given: real bio-scale modes need a cap).
+    neighbor_tables as in eval_auc."""
+    deep_tables(cfg, neighbor_tables)
     gqe.set_matmul_precision(cfg)
     width = max_negs or max((len(q.neg_samples) for q in queries), default=1)
     if neighbor_tables is None:
         return _eval_apr_fast(cfg, params, schema, queries, width)
+    encode_fn = _formula_encoder(cfg, params, neighbor_tables)
     out: dict[str, float] = {}
     for structure, by_formula in sorted(_by_structure(queries).items()):
         num = den = 0.0
         for formula, b in _batches(schema, by_formula, cfg.eval_batch_size,
                                    neg_width=width, hard_neg_width=0, rng=None):
-            pos, neg = _scores(cfg, params, structure, b, b.negs)
+            pos, neg = _scores(cfg, params, structure, b, b.negs, encode_fn)
             pr = percentile_ranks(pos, neg, _on(params, b.neg_mask, torch.bool))
             m = _on(params, b.row_mask, torch.float32)
             num += float(torch.sum(pr * m))

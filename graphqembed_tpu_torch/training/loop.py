@@ -37,6 +37,7 @@ from graphqembed_tpu_torch.data.queries import Query, group_by_formula
 from graphqembed_tpu_torch.device import check_placed, resolve_device
 from graphqembed_tpu_torch.graph.schema import Schema
 from graphqembed_tpu_torch.models import gqe
+from graphqembed_tpu_torch.models.encoders import deep_tables, make_deep_encoder
 from graphqembed_tpu_torch.models.params import tree_clone, tree_leaves
 from graphqembed_tpu_torch.training.eval import eval_auc
 from graphqembed_tpu_torch.training.metrics import LOGGER_NAME
@@ -133,17 +134,16 @@ def make_train_step(cfg: GQEConfig, optimizer,
     row_mask, inter_mode_id, weight) -> (params, opt_state, loss): one
     eager step on one formula batch (numpy arrays from TrainData): the
     per-formula margin loss, autograd, then `optimizer.apply`, which
-    updates the parameters in place. loss is a 0-d tensor."""
+    updates the parameters in place. loss is a 0-d tensor. At cfg.depth > 0
+    the loss encodes nodes with the SAGE encoder over neighbor_tables
+    (required there; placed on the parameters' device), as JAX's."""
     from graphqembed_tpu_torch.training.device_data import (
         _check_storage_optimizer,
         _grads_tree,
     )
 
-    if neighbor_tables is not None:
-        raise NotImplementedError(
-            "the depth>0 SAGE encoder is not ported yet (ROADMAP Queue 1 "
-            "item 9)")
     _check_storage_optimizer(cfg, optimizer)
+    tables = deep_tables(cfg, neighbor_tables)
     gqe.set_matmul_precision(cfg)
 
     def step(params, opt_state, structure, rels, anchors, targets, negs,
@@ -153,9 +153,14 @@ def make_train_step(cfg: GQEConfig, optimizer,
         def on(x, dtype=torch.int64):
             return torch.from_numpy(np.asarray(x)).to(device=dev, dtype=dtype)
 
+        encode_fn = None
+        if tables is not None:
+            encode_fn = make_deep_encoder(cfg, params, tables.to(dev),
+                                          cfg.depth, cfg.aggregator)
         loss = float(weight) * gqe.margin_loss(
             cfg, params, structure, on(anchors), [int(r) for r in rels],
-            int(inter_mode_id), on(targets), on(negs), on(row_mask, torch.bool))
+            int(inter_mode_id), on(targets), on(negs), on(row_mask, torch.bool),
+            encode_fn=encode_fn)
         grads = _grads_tree(params, torch.autograd.grad(
             loss, tree_leaves(params), allow_unused=True,
             materialize_grads=True))
@@ -214,13 +219,17 @@ def run_train(
     state, and the burn-in / hard-negative counters), and resume=True
     restarts from the latest checkpoint with the batch order of an
     uninterrupted run. optimizer defaults to FusedAdamOpt(cfg.lr), the
-    same update as optax.adam on float32 leaves; it is injectable."""
+    same update as optax.adam on float32 leaves; it is injectable.
+    neighbor_tables drives the SAGE encoder at cfg.depth > 0, in the steps
+    and the evals."""
     from graphqembed_tpu_torch.training.device_data import default_optimizer
 
     dev = resolve_device(device)
     check_placed(dev, "params", params["table"])
     optimizer = optimizer or default_optimizer(cfg)
     opt_state = optimizer.init(params)
+    if neighbor_tables is not None:
+        neighbor_tables = neighbor_tables.to(dev)
     step_fn = make_train_step(cfg, optimizer, neighbor_tables)
     data = TrainData(schema, train_queries, cfg.batch_size, seed=cfg.seed)
 
@@ -293,7 +302,8 @@ def run_train(
 
         if val_queries and step_i % cfg.val_every == 0:
             val_queries = resolve_queries(val_queries)
-            aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed)
+            aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed,
+                            neighbor_tables=neighbor_tables)
             macro = aucs.get("macro", 0.0)
             val_history.append((step_i, macro))
             if metrics is not None:

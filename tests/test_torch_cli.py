@@ -114,8 +114,7 @@ def test_opt_flag(tmp_path, data_dir):
 
 @pytest.mark.parametrize("flags,item", [
     (["--pipeline", "stream"], "Queue 1 item 10"),
-    (["--depth", "1"], "Queue 1 item 9"),
-    (["--pipeline", "onthefly", "--depth", "1"], "Queue 1 item 9"),
+    (["--pipeline", "stream", "--depth", "1"], "Queue 1 item 10"),
     (["--mesh", "2", "--pipeline", "device"], "Queue 1 item 11"),
     (["--mesh", "2", "--pipeline", "onthefly"], "Queue 1 item 11"),
     (["--mesh", "4", "--pipeline", "host"], "Queue 1 item 11"),

@@ -185,7 +185,8 @@ def test_train_step_rejects_unported_options():
     cfg = GQEConfig(**CFG)
     with pytest.raises(ValueError, match="FusedAdamOpt"):
         tdd.make_scan_train_step(cfg, object())
-    with pytest.raises(NotImplementedError):
+    # the SAGE encoder needs its neighbor tables
+    with pytest.raises(ValueError, match="neighbor_tables"):
         tdd.make_scan_train_step(dataclasses.replace(cfg, depth=1),
                                  tdd.FusedAdamOpt(0.01))
 
@@ -404,13 +405,31 @@ def test_mega_step_matches_sequential_calls(graph, multitask_data):
 
 
 def test_mega_step_refuses_what_is_not_ported(multitask_data):
+    """The mesh is not ported (Queue 1 item 11). The SAGE encoder is: at
+    depth 1 the mega-step runs with its neighbor tables (one round over
+    every structure, finite losses and parameters) and refuses to run
+    without them; at depth 0 tables are not read, as in JAX."""
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
+
     cfg = GQEConfig(**CFG)
     opt = tdd.FusedAdamOpt(cfg.lr)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tdd.make_multitask_mega_step(cfg, opt, multitask_data, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdd.make_multitask_mega_step(cfg, opt, multitask_data,
-                                     neighbor_tables=object())
+    tdd.make_multitask_mega_step(cfg, opt, multitask_data,
+                                 neighbor_tables=object())
+    deep = dataclasses.replace(cfg, depth=1)
+    with pytest.raises(ValueError, match="neighbor_tables"):
+        tdd.make_multitask_mega_step(deep, opt, multitask_data)
+    g = synthetic_graph(seed=7, scale=0.5, avg_degree=6.0)
+    tables = NeighborTables.build(g, sample_size=4)
+    params = init_params(deep, g.schema, device="cpu")
+    run = tdd.make_multitask_mega_step(deep, opt, multitask_data,
+                                       neighbor_tables=tables.to("cpu"))
+    params, _, losses = run(params, opt.init(params), 3, 1, 2)
+    assert losses.shape == (1, len(multitask_data.structures))
+    assert torch.isfinite(losses).all()
+    for path, leaf in tree_paths(params):
+        assert torch.isfinite(leaf.float()).all(), path
 
 
 # ---------- optimizers and the production driver ----------
@@ -629,12 +648,28 @@ def test_run_train_device_mega_deferred_val_queries(mega_graph):
 
 
 def test_run_train_device_mega_refuses_what_is_not_ported(mega_graph):
+    """The mesh is not ported (item 11); depth 1 without neighbor tables is
+    refused (the SAGE encoder reads them), and with them the driver runs,
+    evaluating with them."""
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
+
     cfg = GQEConfig(embed_dim=16)
     data = _mega_data(mega_graph, (("1p", 20),), 1)
     params = _mega_params(cfg, mega_graph, 0)
     with pytest.raises(NotImplementedError, match="item 11"):
         tdd.run_train_device_mega(cfg, mega_graph.schema, params, data,
                                   mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdd.run_train_device_mega(cfg, mega_graph.schema, params, data,
-                                  neighbor_tables=object(), device="cpu")
+    deep = GQEConfig(embed_dim=16, depth=1, batch_size=16, val_every=20,
+                     tol=0.0, conv_window=10**6)
+    params = _mega_params(deep, mega_graph, 0)
+    with pytest.raises(ValueError, match="neighbor_tables"):
+        tdd.run_train_device_mega(deep, mega_graph.schema, params, data,
+                                  total_steps=20, device="cpu")
+    val = QuerySampler(mega_graph, np.random.default_rng(2),
+                       max_negs=10).sample_many("1p", 20)
+    res = tdd.run_train_device_mega(
+        deep, mega_graph.schema, params, data, val_queries=val,
+        total_steps=40, burn_in_steps=20, steps_per=10, device="cpu",
+        neighbor_tables=NeighborTables.build(mega_graph, sample_size=4))
+    assert res.steps == 40 and [s for s, _ in res.val_history] == [40]
+    assert 0 < res.best_val_auc <= 1

@@ -410,17 +410,25 @@ def test_onthefly_steps_match_jax(monkeypatch, graphs, dgs, structure,
     _assert_tree_close(nu_t, nu_j, "nu")
 
 
-def test_onthefly_step_refuses_what_is_not_ported(dgs):
+def test_onthefly_step_refuses_what_is_not_ported(graphs, dgs):
     _, tdg = dgs["conftest"]
     cfg = GQEConfig(embed_dim=16, batch_size=32)
     opt = tdd.default_optimizer(cfg)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
         tds.make_onthefly_train_step(cfg, opt, tdg, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tds.make_onthefly_train_step(dataclasses.replace(cfg, depth=1), opt,
-                                     tdg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tds.make_onthefly_train_step(cfg, opt, tdg, neighbor_tables=object())
+    # the SAGE encoder: refused without its neighbor tables, run with them
+    # (one dispatch, finite); at depth 0 tables are not read, as in JAX
+    deep = dataclasses.replace(cfg, depth=1)
+    with pytest.raises(ValueError, match="neighbor_tables"):
+        tds.make_onthefly_train_step(deep, opt, tdg)
+    tds.make_onthefly_train_step(cfg, opt, tdg, neighbor_tables=object())
+    tables = encoders.NeighborTables.build(graphs["conftest"][1], sample_size=4)
+    run = tds.make_onthefly_train_step(deep, opt, tdg, neighbor_tables=tables)
+    params = init_params(deep, graphs["conftest"][1].schema, device="cpu")
+    params, _, loss = run(params, opt.init(params), "2i",
+                          tdd.derived_generator("cpu", 0, 0), 2, 1.0, True)
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(v).all() for v in params["encoder"].values())
 
 
 def test_entry_points_need_a_card_unless_asked_for_cpu(graphs):

@@ -240,8 +240,12 @@ def test_train_step_takes_fused_adam_and_sgd_only():
     with pytest.raises(ValueError, match="stochastic-rounding"):
         tloop.make_train_step(GQEConfig(embed_dim=8, storage_dtype="bfloat16"),
                               SGDOpt(0.01))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tloop.make_train_step(cfg, FusedAdamOpt(0.01), neighbor_tables=object())
+    # the SAGE encoder reads neighbor tables: refused without them at
+    # depth 1; not read at depth 0, as in JAX
+    tloop.make_train_step(cfg, FusedAdamOpt(0.01), neighbor_tables=object())
+    with pytest.raises(ValueError, match="neighbor_tables"):
+        tloop.make_train_step(GQEConfig(embed_dim=8, depth=1),
+                              FusedAdamOpt(0.01))
 
 
 def test_metrics_writer_and_throughput_meter(tmp_path):
