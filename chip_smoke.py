@@ -96,6 +96,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
              --depth 1 and --pipeline host --depth 1 --aggregator pool (360
              steps each); 20 depth-2 pool steps at the bench workload, with
              their time and peak memory
+  stream     the beyond-RAM stream (data/grain_pipeline.py), bf16, d=128,
+             B=512: (a) experiments/stream_throughput.py's workload (native
+             shards of the bench graph: 40,000 1p edges, 30,000 2p, 30,000
+             3i) through run_train_stream, stream_window 16,384, cut from
+             30,000 to 6,000 steps (1,000 of burn-in, 21 window swaps): the
+             first window set on the card equal to its numpy arrays, exact
+             launches, the swaps, the seconds waiting on the next window,
+             falling losses, q/s beside run_train_device_mega on the same
+             queries and schedule; (b) gqe-torch-train --pipeline stream
+             --bf16 on the protocol's data (6,000 steps, 1,500 of burn-in)
+             with exact launches, the expected swaps and eval steps,
+             falling losses, val macro AUC and APR within 0.03 of the JAX
+             CPU reference; SIGKILL and --resume bit for bit (2,000 steps);
+             --depth 1 (360 steps); the phase's seconds
   sampler    the native C++ sampler (native/sampler.cpp) built with g++; the
              oracle bar's data of both families (bio, bio-latent: 8,000 +
              400 queries per structure, parallel_sample native on 8
@@ -1138,6 +1152,24 @@ JAX_CPU_DEEP = {"auc": 0.7450413929777486, "apr": 0.7411843806579709}
 # sides sum in other orders, tests/test_torch_encoders.py).
 DEEP_ENCODER_TOL = {"out_atol": 1e-5, "grad_rtol": 1e-4, "grad_atol_of_max": 1e-5}
 
+# The stream phase. (a) experiments/stream_throughput.py:29-40's workload
+# through run_train_stream: the bench graph, native shards of all its 1p
+# edges (capped at 40,000), 30,000 2p and 30,000 3i queries; bf16, d = 128,
+# B = 512, stream_window 16,384, reuse 2.0, 100 steps a dispatch; cut from
+# 30,000 steps with 5,000 of burn-in to 6,000 with 1,000 (21 window swaps).
+STREAM_CELL = {"total_steps": 6000, "burn_in_steps": 1000, "steps_per": 100}
+# (b) gqe-torch-train --pipeline stream on the protocol's data (50 steps a
+# dispatch, the CLI's), its quality held within QUALITY_TOL of the JAX CLI
+# on a CPU with the same data and flags:
+#   JAX_PLATFORMS=cpu python -m graphqembed_tpu.cli.train --data_dir D \
+#     --model_dir M <cli_flags(STREAM_FLAGS, STREAM)>
+# (metrics.json, final_auc / final_apr macro; 6,000 steps).
+STREAM_FLAGS = ["--pipeline", "stream", "--bf16", "--lr", "0.03", "--tol=-1e9",
+                "--seed", "0"]
+STREAM = {"max_iter": 6000, "max_burn_in": 1500, "val_every": 1500,
+          "ckpt_every": 1500}
+JAX_CPU_STREAM = {"auc": 0.6115163832892822, "apr": 0.6205023648529153}
+
 
 def write_protocol_data(path):
     """The protocol's graph and queries through the port's generator, sampler
@@ -1307,10 +1339,14 @@ def headline_summary(metrics: dict, res, launches: dict, wall: float,
             "apr": metrics["final_apr"], "card": card}
 
 
-def check_quality(metrics: dict, ref: dict, what: str) -> dict:
+def check_quality(metrics: dict, ref: dict, what: str, two_sided: bool = False) -> dict:
+    """Val macro AUC and APR at least the JAX CPU reference − QUALITY_TOL
+    and, when two_sided, at most the reference + QUALITY_TOL."""
     q = {"auc": metrics["final_auc"]["macro"], "apr": metrics["final_apr"]["macro"]}
     for m, v in q.items():
-        check(v >= ref[m] - QUALITY_TOL,
+        check(v >= ref[m] - QUALITY_TOL and not (two_sided and v > ref[m] + QUALITY_TOL),
+              f"{what}: val macro {m} {v} outside the JAX CPU reference "
+              f"{ref[m]} ± {QUALITY_TOL}" if two_sided else
               f"{what}: val macro {m} {v} below the JAX CPU reference "
               f"{ref[m]} - {QUALITY_TOL}")
     return q
@@ -1910,6 +1946,251 @@ def phase_deep(dev, card: str, data, work: dict) -> dict:
     return out
 
 
+def stream_schedule(total, burn, steps_per, n_struct, budget, val_every=None):
+    """(window swaps, eval steps) of run_train_stream's schedule with no
+    convergence stop: burn-in dispatches on 1p, then rounds of n_struct
+    dispatches; the windows swap before a dispatch (burn-in) or a round once
+    `budget` steps ran on them; evals every round(val_every / steps_per)
+    burn-in dispatches and every round(val_every / (n_struct·steps_per))
+    rounds."""
+    step = dispatch = on_window = swaps = 0
+    evals = []
+
+    def swap():
+        nonlocal on_window, swaps
+        if on_window >= budget:
+            swaps, on_window = swaps + 1, 0
+
+    while step < min(burn, total):
+        swap()
+        t = max(1, min(steps_per, total - step, burn - step))
+        step, on_window, dispatch = step + t, on_window + t, dispatch + 1
+        if val_every and dispatch % max(1, round(val_every / steps_per)) == 0:
+            evals.append(step)
+    every_r, r = max(1, round((val_every or 1) / (n_struct * steps_per))), 0
+    while step < total:
+        swap()
+        for _ in range(n_struct):
+            t = max(0, min(steps_per, total - step))
+            step, on_window = step + t, on_window + t
+        r += 1
+        if val_every and r % every_r == 0:
+            evals.append(step)
+    if val_every and not evals:
+        evals.append(step)
+    return swaps, evals
+
+
+def window_budget(cfg, counts: dict, steps_per: int) -> int:
+    """Steps a window set serves (run_train_stream's window_budget)."""
+    win = sum(min(cfg.stream_window, max(n, cfg.batch_size)) for n in counts.values())
+    return max(steps_per, int(cfg.stream_reuse * win / cfg.batch_size))
+
+
+def stream_cell(dev, card: str, work: dict, tmp) -> dict:
+    """Phase stream (a): the stream_throughput workload (STREAM_CELL)
+    through run_train_stream on native shards, the first window set on the
+    card against its numpy arrays, exact launches, the swaps, falling
+    losses; then the same schedule through device_pool_from_arrays →
+    DeviceTrainData.from_pools → run_train_device_mega on the same queries."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.data import grain_pipeline as gp
+    from graphqembed_tpu_torch.data.loader import save_query_arrays
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.native import binding
+    from graphqembed_tpu_torch.training import device_data as dd
+
+    graph = work["graph"]
+    schema = graph.schema
+    cfg = dataclasses.replace(work["cfg"], seed=0, val_every=10**9, tol=0.0,
+                              conv_window=10**9, stream_window=16384)
+    t0 = time.perf_counter()
+    binding.build()
+    arrs = [binding.native_all_edges_1p(graph, cap=40000, max_negs=16, seed=1),
+            binding.native_sample_arrays(graph, "2p", 30000, seed=2, max_negs=16),
+            binding.native_sample_arrays(graph, "3i", 30000, seed=3, max_negs=16)]
+    shards = tmp / "stream_cell" / "train_queries"
+    save_query_arrays(shards, schema, arrs)
+    counts = {a["structure"]: len(a["targets"]) for a in arrs}
+    data_s = time.perf_counter() - t0
+
+    # the run's first window set, drawn again from fresh streams, on the card
+    # against the numpy arrays of the same draw
+    tmode = schema.rel_target_mode_ids()
+    t0 = time.perf_counter()
+    streams = {s: gp.NpzStructureStream(shards, s, seed=0) for s in counts}
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = {s: gp._window_arrays([streams[s].draw(min(cfg.stream_window, n))], s,
+                                 tmode) for s, n in counts.items()}
+    assemble_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged = gp.WindowPacker(dev).pack(host)
+    pack_s = time.perf_counter() - t0
+    staged.use_on(torch.cuda.current_stream(dev))
+    for s, arrays in host.items():
+        for f, a in arrays.items():
+            check(torch.equal(getattr(staged[s], f).cpu(), torch.from_numpy(a)),
+                  f"first window {s}/{f} on the card differs from its arrays")
+    window_mb = staged.buffer.numel() * 8 / 2**20
+    del staged
+
+    sc = STREAM_CELL
+    steps_per = sc["steps_per"]
+    budget = window_budget(cfg, counts, steps_per)
+    want_swaps, _ = stream_schedule(sc["total_steps"], sc["burn_in_steps"],
+                                    steps_per, len(counts), budget)
+    params = init_params(cfg, schema, torch.Generator().manual_seed(0), device=dev)
+    reset_counts()
+    w0 = time.perf_counter()
+    res = gp.run_train_stream(cfg, schema, params, shards, device=dev, **sc)
+    wall = time.perf_counter() - w0
+    launches = read_counts()
+    steps = res.steps
+    check(steps == sc["total_steps"] and res.burn_in_steps == sc["burn_in_steps"],
+          f"stream cell took {steps} steps, {res.burn_in_steps} of burn-in")
+    want = want_counts(fused_adam_leaf=3 * steps, fused_adam_leaf_sr=steps,
+                       scatter_rows=steps)
+    check(launches == want, f"stream cell launches {launches}, want {want}")
+    t = res.timings
+    check(t["window_swaps"] == want_swaps,
+          f"stream cell swapped {t['window_swaps']} times, want {want_swaps}")
+    check_params_finite(res.params, res)
+    burn = res.losses["1p"][:sc["burn_in_steps"] // steps_per]
+    for name, v in (("1p burn-in", burn), ("2p", res.losses["2p"]),
+                    ("3i", res.losses["3i"])):
+        check(all(np.isfinite(v)) and fell(v), f"stream cell {name} loss did not fall: {v}")
+    stream = {"steps": steps, "queries": sum(counts.values()), "counts": counts,
+              "ms_per_step": 1e3 * t["train_s"] / t["session_steps"],
+              "train_qps": res.queries_per_sec, "wall_s": wall,
+              "window_swaps": t["window_swaps"], "window_budget_steps": budget,
+              "window_wait_s": t["window_wait_s"],
+              "window_wait_share": t["window_wait_s"] / t["train_s"],
+              "launches": launches, "loss_first_last": {
+                  "1p_burn": [burn[0], burn[-1]],
+                  **{s: [res.losses[s][0], res.losses[s][-1]] for s in ("2p", "3i")}}}
+    del params, res
+
+    # the same schedule with the whole query set on the card
+    pools = {a["structure"]: dd.device_pool_from_arrays(schema, a, device=dev)
+             for a in arrs}
+    data = dd.DeviceTrainData.from_pools(pools, device=dev)
+    params = init_params(cfg, schema, torch.Generator().manual_seed(0), device=dev)
+    reset_counts()
+    w0 = time.perf_counter()
+    mega = dd.run_train_device_mega(cfg, schema, params, data, device=dev, **sc)
+    mwall = time.perf_counter() - w0
+    mcounts = read_counts()
+    n = mega.steps
+    want = want_counts(fused_adam_leaf=3 * n, fused_adam_leaf_sr=n, scatter_rows=n)
+    check(mcounts == want, f"run_train_device_mega launches {mcounts}, want {want}")
+    mt = mega.timings
+    device = {"steps": n, "ms_per_step": 1e3 * mt["train_s"] / mt["session_steps"],
+              "train_qps": mega.queries_per_sec, "wall_s": mwall, "launches": mcounts}
+    return {"card": card, "data_s": data_s, "window_set_mb": window_mb,
+            "shard_load_ms": 1e3 * load_s,
+            "first_window_assemble_ms": 1e3 * assemble_s,
+            "first_window_pack_ms": 1e3 * pack_s, "first_window_equal": True,
+            "stream": stream, "device_mega": device,
+            "stream_over_device_qps": stream["train_qps"] / device["train_qps"]}
+
+
+def phase_stream(dev, card: str, data, work: dict) -> dict:
+    """The beyond-RAM stream pipeline (data/grain_pipeline.py) at full width
+    (d = 128, B = 512, bilinear/min, bf16): (a) stream_cell; (b) on the
+    protocol's data directory, gqe-torch-train --pipeline stream (STREAM:
+    6,000 steps, 1,500 of burn-in, evals and checkpoints every 1,500) with
+    exact launches, the expected swaps and eval steps, falling losses and
+    val macro AUC and APR within QUALITY_TOL of JAX_CPU_STREAM; SIGKILL and
+    --resume through the plain CLI at RESUME, bit for bit; --depth 1 at
+    DEEP_SHORT, with its launches, learning."""
+    import numpy as np
+
+    from graphqembed_tpu_torch.cli import train as cli
+    from graphqembed_tpu_torch.config import GQEConfig
+    from graphqembed_tpu_torch.data import grain_pipeline as gp
+
+    p0 = time.perf_counter()
+    tmp = data.parent
+    out = {"cell": stream_cell(dev, card, work, tmp)}
+    emit({"phase": "stream", "step": "cell", **out["cell"]})
+
+    base = ["--data_dir", str(data)]
+    run_dir = tmp / "stream_head"
+    reset_counts()
+    w0 = time.perf_counter()
+    rc, _, res = run_cli(cli.main, base + cli_flags(STREAM_FLAGS, STREAM)
+                         + ["--model_dir", str(run_dir)], gp, "run_train_stream")
+    wall = time.perf_counter() - w0
+    launches = read_counts()
+    check(rc == 0 and len(res) == 1, f"stream run: rc {rc}")
+    res = res[0]
+    metrics = json.loads((run_dir / "metrics.json").read_text())
+    steps = metrics["steps"]
+    check(steps == STREAM["max_iter"] and metrics["burn_in_steps"] == STREAM["max_burn_in"],
+          f"stream run took {steps} steps, {metrics['burn_in_steps']} of burn-in")
+    want = want_counts(fused_adam_leaf=3 * steps, fused_adam_leaf_sr=steps,
+                       scatter_rows=steps)
+    check(launches == want, f"stream launches {launches}, want {want}")
+    check_params_finite(load_params(run_dir / "best"), res)
+    steps_per = 50   # run_train_stream's default; the CLI passes none
+    counts = {s: PROTOCOL_N_TRAIN for s in res.losses}
+    cfg = GQEConfig.from_json((run_dir / "config.json").read_text())
+    swaps, evals = stream_schedule(steps, res.burn_in_steps, steps_per, len(counts),
+                                   window_budget(cfg, counts, steps_per),
+                                   STREAM["val_every"])
+    check(res.timings["window_swaps"] == swaps,
+          f"stream run swapped {res.timings['window_swaps']} times, want {swaps}")
+    check([s for s, _ in res.val_history] == evals,
+          f"stream val_history {res.val_history}, eval steps {evals}")
+    burn = res.losses["1p"][:res.burn_in_steps // steps_per]
+    multi = {s: v for s, v in res.losses.items() if s != "1p"}
+    check(all(np.isfinite(burn)) and fell(burn), f"stream burn-in loss did not fall: {burn}")
+    for s, v in multi.items():
+        check(all(np.isfinite(v)) and fell(v), f"stream multitask {s} loss did not fall: {v}")
+    out["headline"] = {**headline_summary(metrics, res, launches, wall, card),
+                       "window_swaps": swaps,
+                       "loss_burn_first_last": [burn[0], burn[-1]],
+                       "loss_multi_first_last": {s: [v[0], v[-1]] for s, v in multi.items()}}
+    emit({"phase": "stream", "step": "headline", **out["headline"]})
+    # both packages run the same schedule on the same shards: held from
+    # above too
+    q = check_quality(metrics, JAX_CPU_STREAM, "stream", two_sided=True)
+    emit({"phase": "stream", "step": "quality", "card": q, "jax_cpu": JAX_CPU_STREAM,
+          "tolerance": QUALITY_TOL})
+
+    out["resume"] = kill_and_resume(tmp, "stream", base + cli_flags(STREAM_FLAGS, RESUME))
+    emit({"phase": "stream", "step": "resume", **out["resume"]})
+
+    run_dir = tmp / "stream_deep"
+    reset_counts()
+    rc, _, r = run_cli(cli.main, base + cli_flags(STREAM_FLAGS + ["--depth", "1"],
+                                                 DEEP_SHORT)
+                       + ["--model_dir", str(run_dir)], gp, "run_train_stream")
+    counts = read_counts()
+    check(rc == 0 and len(r) == 1, f"stream --depth 1 run: rc {rc}")
+    r, m = r[0], json.loads((run_dir / "metrics.json").read_text())
+    n = m["steps"]
+    check(n == DEEP_SHORT["max_iter"], f"stream --depth 1 took {n} steps")
+    want = want_counts(fused_adam_leaf=6 * n, fused_adam_leaf_sr=n, scatter_rows=2 * n)
+    check(counts == want, f"stream --depth 1 launches {counts}, want {want}")
+    check_params_finite(load_params(run_dir / "best"), r)
+    burn = r.losses["1p"][:r.burn_in_steps // steps_per + 1]
+    check(all(np.isfinite(v) for vs in r.losses.values() for v in vs)
+          and burn[-1] < burn[0] and m["final_auc"]["macro"] > 0.55,
+          f"stream --depth 1 did not learn: burn-in {burn}, {m['final_auc']}")
+    t = m["timings"]
+    out["deep"] = {"steps": n, "ms_per_step": 1e3 * t["train_s"] / t["session_steps"],
+                   "launches": counts, "val_history": r.val_history,
+                   "auc": m["final_auc"]["macro"], "apr": m["final_apr"]["macro"]}
+    emit({"phase": "stream", "step": "deep", "card": card, **out["deep"]})
+    out["seconds"] = time.perf_counter() - p0
+    emit({"phase": "stream", "step": "done", "seconds": out["seconds"]})
+    return out
+
+
 def profile_chunk(chunk, i0, ms_per_step):
     """Device time by kernel over one 2p and one 3i chunk, and the device's
     idle share against the unprofiled step time."""
@@ -1932,10 +2213,10 @@ def profile_chunk(chunk, i0, ms_per_step):
 
 
 def protocol_phases(dev, card: str, work: dict, profile: bool = False
-                    ) -> tuple[dict, dict, dict, dict]:
+                    ) -> tuple[dict, dict, dict, dict, dict]:
     """The protocol's data directory, written once, then the phases that
-    read it: protocol, onthefly and deep. Returns their results and the
-    data's summary (with the Python sampler's seconds)."""
+    read it: protocol, onthefly, deep and stream. Returns their results and
+    the data's summary (with the Python sampler's seconds)."""
     import tempfile
     from pathlib import Path
 
@@ -1946,7 +2227,8 @@ def protocol_phases(dev, card: str, work: dict, profile: bool = False
         emit({"phase": "protocol", "step": "data", **info,
               "seconds": time.perf_counter() - t0})
         return (phase_protocol(card, data), phase_onthefly(card, data, profile),
-                phase_deep(dev, card, data, work), info)
+                phase_deep(dev, card, data, work), phase_stream(dev, card, data, work),
+                info)
 
 
 # The oracle-parity bar (graphqembed_tpu_torch/experiments/oracle_parity.py
@@ -2282,7 +2564,7 @@ def main(argv):
     phase_train_sparse(dev, card, work)
     phase_multitask(dev, card, work)
     eval_launches = phase_eval(trained, card)
-    protocol, onthefly, deep, protocol_data = protocol_phases(
+    protocol, onthefly, deep, stream, protocol_data = protocol_phases(
         dev, card, work, "--profile" in argv)
     bar = phase_sampler(dev, card, protocol_data["python_sample_s"])
     oracle = phase_oracle_parity(dev, card, bar)
@@ -2317,12 +2599,19 @@ def main(argv):
          "bound_ms": sr_t["bound_ms"], "bound_by": sr_t["bound_by"],
          "library_ms": sr_t["library_ms"]},
     ]
-    # the protocol's headline run, the onthefly run and the deep headline
-    # run are main paths of both Adam kernels
+    def stream_launches(name):
+        """The stream phase's launches of `name`: its cell (a) and its CLI
+        headline run (b)."""
+        return {"cell": stream["cell"]["stream"]["launches"][name],
+                "cli": stream["headline"]["launches"][name]}
+
+    # the protocol's headline run, the onthefly run, the deep headline run
+    # and the stream runs are main paths of both Adam kernels
     for row in kernels:
         row["launches_protocol"] = protocol["headline"]["launches"][row["name"]]
         row["launches_onthefly"] = onthefly["headline"]["launches"][row["name"]]
         row["launches_deep"] = deep_launches[row["name"]]
+        row["launches_stream"] = stream_launches(row["name"])
     rows_k = kern["fused_adam_table_sorted_rows_sr"]
     rows_t = rows_k["timing"]["bench_3i_batch"]
     kernels.append(
@@ -2345,6 +2634,7 @@ def main(argv):
          "launches_protocol": protocol["headline"]["launches"]["scatter_rows"],
          "launches_onthefly": onthefly["headline"]["launches"]["scatter_rows"],
          "launches_deep": deep_launches["scatter_rows"],
+         "launches_stream": stream_launches("scatter_rows"),
          **oracle_keys("scatter_rows"),
          "max_abs_err": sc["max_abs_err"],
          "ms": sc_t["ms"], "plain_ms": sc_t["plain_ms"],

@@ -12,11 +12,13 @@ Runs on the card; --cpu runs on the CPU (every kernel replaced by its plain
 PyTorch version). Without a card and without --cpu it exits non-zero.
 --pipeline onthefly samples every training batch on the device
 (training/device_sampler.py) and reads no training queries from
---data_dir. --depth 1 or 2 trains the SAGE encoder (models/encoders.py,
---aggregator mean or pool) over neighbor tables of --neighbor_samples
-neighbors per relation, on the host, device and onthefly pipelines and in
-the final evals. Not ported yet, and refused naming the ROADMAP item:
---pipeline stream (Queue 1 item 10), --mesh N > 1 (item 11).
+--data_dir. --pipeline stream streams --data_dir/train_queries (npz
+shards) through fixed windows on the device (data/grain_pipeline.py) and
+never holds the training set in memory. --depth 1 or 2 trains the SAGE
+encoder (models/encoders.py, --aggregator mean or pool) over neighbor
+tables of --neighbor_samples neighbors per relation, on every pipeline and
+in the final evals. Not ported yet, and refused naming the ROADMAP item:
+--mesh N > 1 (Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ import numpy as np
 import torch
 
 UNPORTED = {
-    "stream": "--pipeline stream (the beyond-RAM stream) is not ported yet: "
-              "ROADMAP Queue 1 item 10",
     "mesh": "--mesh N > 1 (the distributed trainer) is not ported yet: "
             "ROADMAP Queue 1 item 11",
 }
@@ -107,10 +107,12 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["host", "device", "stream", "onthefly"],
                    help="host: reference-schedule loop (per-formula "
                         "batches). device: device-resident pools, the "
-                        "production driver. onthefly: every batch of all 7 "
-                        "structures sampled on the device, no query pools. "
-                        "All three support convergence stopping and "
-                        "checkpoints/--resume. stream is not ported yet")
+                        "production trainer. stream: npz query shards "
+                        "streamed through fixed device windows (beyond "
+                        "RAM). onthefly: every batch of all 7 structures "
+                        "sampled on the device, no query pools. All four "
+                        "support convergence stopping and "
+                        "checkpoints/--resume")
     p.add_argument("--ckpt_every", type=int, default=0,
                    help="save full train state every N steps (0 = off)")
     p.add_argument("--resume", action="store_true",
@@ -134,7 +136,8 @@ def dispatch_steps_per(max_iter: int) -> int:
 
 def load_dataset(args, skip_train: bool = False):
     """(graph, train queries, val queries or None). skip_train leaves a
-    --data_dir's train queries on disk (--pipeline onthefly needs none);
+    --data_dir's train queries on disk (--pipeline onthefly needs none, and
+    --pipeline stream reads them shard by shard);
     the synthetic path samples them anyway, since val queries come from the
     same sampler stream."""
     from graphqembed_tpu_torch.config import STRUCTURES
@@ -187,8 +190,6 @@ def main(argv=None):
             "--storage_dtype bfloat16 needs the stochastic-rounding fused "
             "Adam, wired into --pipeline device, stream or onthefly (the "
             "host loop keeps float32 storage)")
-    if args.pipeline == "stream":
-        raise SystemExit(UNPORTED["stream"])
     if not 0 <= args.depth <= 2:
         raise SystemExit(f"--depth {args.depth}: the SAGE encoder takes 0, 1 "
                          "or 2")
@@ -202,6 +203,9 @@ def main(argv=None):
         n_mesh = math.gcd(n_visible, args.batch_size)
     if n_mesh > 1:
         raise SystemExit(UNPORTED["mesh"])
+    if args.pipeline == "stream" and args.data_dir is None:
+        raise SystemExit("--pipeline stream needs --data_dir with saved npz "
+                         "query shards (gqe-sample output)")
 
     from graphqembed_tpu_torch.config import GQEConfig
     from graphqembed_tpu_torch.models.encoders import NeighborTables
@@ -247,8 +251,8 @@ def main(argv=None):
     model_dir.mkdir(parents=True, exist_ok=True)
     (model_dir / "config.json").write_text(cfg.to_json())
 
-    graph, train, val = load_dataset(args,
-                                     skip_train=args.pipeline == "onthefly")
+    graph, train, val = load_dataset(
+        args, skip_train=args.pipeline in ("onthefly", "stream"))
     logging.info("dataset: %d nodes, %d edges, %d train / %d val queries",
                  graph.schema.n_nodes, graph.num_edges(), len(train),
                  len(val or []))
@@ -267,7 +271,14 @@ def main(argv=None):
     log = lambda step, s, l: (  # noqa: E731
         logging.info("step %d [%s] loss %.4f", step, s, l),
         writer.write(step, **{f"loss/{s}": l}))[0]
-    if args.pipeline == "onthefly":
+    if args.pipeline == "stream":
+        from graphqembed_tpu_torch.data.grain_pipeline import run_train_stream
+        res = run_train_stream(
+            cfg, graph.schema, params, Path(args.data_dir) / "train_queries",
+            val_queries=val, neighbor_tables=tables, ckpt_manager=mgr,
+            ckpt_every=args.ckpt_every, resume=args.resume,
+            optimizer=optimizer, device=device, log=log)
+    elif args.pipeline == "onthefly":
         from graphqembed_tpu_torch.training.device_sampler import (
             DeviceGraph,
             run_train_onthefly,

@@ -2,9 +2,9 @@
 the JAX package's `GQEConfig`, so one configuration means the same run in
 both packages.
 
-Fields the port does not act on yet (the depth>0 encoder, the stream
-pipeline, mesh layout, the Pallas-only switches) are kept so that a config
-written by either package loads in the other.
+Fields the port does not act on yet (mesh layout, the Pallas-only
+switches) are kept so that a config written by either package loads in the
+other.
 """
 
 from __future__ import annotations

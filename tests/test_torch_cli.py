@@ -1,7 +1,7 @@
 """The port's CLIs (graphqembed_tpu_torch.cli.train and .evaluate) on the
 CPU (--cpu): the JAX CLI's flags, defaults and refusals, the unported
-options refused naming their ROADMAP item, runs of the pipelines on a data
-directory written by the port's loader, SIGKILL and --resume as
+option (--mesh N > 1) refused naming its ROADMAP item, runs of the
+pipelines on a data directory written by the port's loader, SIGKILL and --resume as
 tests/test_fault_injection.py does for the JAX CLI, and gqe-torch-eval
 reproducing metrics.json (same parameters, seed and device: within
 1e-6)."""
@@ -113,8 +113,7 @@ def test_opt_flag(tmp_path, data_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--pipeline", "stream"], "Queue 1 item 10"),
-    (["--pipeline", "stream", "--depth", "1"], "Queue 1 item 10"),
+    (["--mesh", "2", "--pipeline", "stream"], "Queue 1 item 11"),
     (["--mesh", "2", "--pipeline", "device"], "Queue 1 item 11"),
     (["--mesh", "2", "--pipeline", "onthefly"], "Queue 1 item 11"),
     (["--mesh", "4", "--pipeline", "host"], "Queue 1 item 11"),
@@ -136,7 +135,7 @@ def _cmd(model_dir, data_dir, pipeline, extra=()):
             "--pipeline", pipeline, *extra]
 
 
-@pytest.mark.parametrize("pipeline", ["host", "device", "onthefly"])
+@pytest.mark.parametrize("pipeline", ["host", "device", "stream", "onthefly"])
 def test_kill_and_resume(data_dir, tmp_path, pipeline):
     """SIGKILL the CLI once a checkpoint's meta.json exists, rerun it with
     --resume: it completes from the checkpoint, not from scratch."""
@@ -191,6 +190,34 @@ def test_onthefly_pipeline_writes_metrics(tmp_path, data_dir):
     logged = {k for line in (md / "metrics.jsonl").read_text().splitlines()
               for k in json.loads(line) if k.startswith("loss/")}
     assert logged == {f"loss/{s}" for s in STRUCTURES}
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_stream_pipeline_trains(tmp_path, data_dir, depth):
+    """--pipeline stream reads the train shards through device windows
+    (here on the CPU), with --bf16 and at depth 1: every structure trains,
+    and the run writes metrics.json, its timings and the best parameters."""
+    md = tmp_path / "run"
+    rc = main(["--data_dir", str(data_dir), *SMALL, "--max_iter", "160",
+               "--max_burn_in", "20", "--val_every", "80", "--pipeline",
+               "stream", "--bf16", "--tol=-1e9", "--depth", str(depth),
+               "--neighbor_samples", "4", "--model_dir", str(md)])
+    assert rc == 0
+    metrics = json.loads((md / "metrics.json").read_text())
+    assert metrics["steps"] == 160 and metrics["burn_in_steps"] == 20
+    t = metrics["timings"]
+    assert t["session_steps"] == 160 and "window_wait_s" in t
+    assert {"final_auc", "final_auc_hard", "final_apr"} <= set(metrics)
+    assert set(metrics["final_auc"]) == set(STRUCTURES) | {"macro"}
+    assert json.loads((md / "config.json").read_text())["storage_dtype"] == "bfloat16"
+    assert (md / "best" / "meta.json").exists()
+
+
+def test_stream_pipeline_needs_data_dir(tmp_path):
+    with pytest.raises(SystemExit, match="--pipeline stream needs --data_dir"):
+        main(["--synthetic", "--cpu", "--pipeline", "stream", "--model_dir",
+              str(tmp_path)])
+    assert not (tmp_path / "config.json").exists()
 
 
 def test_eval_cli_reproduces_metrics_json(tmp_path, data_dir, capsys):

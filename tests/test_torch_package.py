@@ -1,5 +1,6 @@
 """Boundaries of the port package (graphqembed_tpu_torch) and chip_smoke.py:
-they import neither JAX nor anything of the JAX package; entry points run
+they import neither JAX (nor grain, whose import loads it) nor anything of
+the JAX package; entry points run
 on the card unless the caller asks for the CPU; chip_smoke.py refuses to
 run without a card or outside the repository."""
 
@@ -17,7 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _IMPORT_ALL = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
 
-BANNED = ("jax", "jaxlib", "optax", "graphqembed_tpu")
+BANNED = ("jax", "jaxlib", "optax", "grain", "graphqembed_tpu")
 
 class Refuse(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
