@@ -51,6 +51,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
   multitask  run_train_device on all 7 structures of the bench graph (300
              queries each), rows_grad_update=True: 100 burn-in steps on 1p,
              then 700 steps in two rounds of 50-step chunks
+  mesh       the data-parallel mesh (parallel/) at world size 1: a child
+             process started by spawn_on_mesh in an NCCL group (file://
+             rendezvous) holds, bit for bit, float32: make_sharded_train_step
+             against make_train_step (bench workload, 4 host batches);
+             run_train_device_mega(mesh=) against mesh=None (7 x 300 queries,
+             600 steps, evals and checkpoints every 200), the same checkpoint
+             files; run_train_onthefly(mesh=) against mesh=None (the
+             protocol's graph, 600 steps); a mesh run resumed from the
+             unsharded run's checkpoint against the uninterrupted run; the
+             launches equal the unsharded runs', the collectives per step
+             counted; ms per step sharded and unsharded
   eval       AUC (one negative), hard AUC and APR of the trained parameters
              on held-out queries of the bench graph (500 2p, 500 3i, 200
              each of 2i, ip, pi; fresh seed, training queries dropped;
@@ -933,6 +944,519 @@ def phase_multitask(dev, card: str, work: dict):
           "steps": total, "burn_in_steps": burn, "chunk": chunk,
           "train_qps_wall": cfg.batch_size * total / wall,
           "losses": losses, "launches": launches})
+
+
+# The mesh phase (parallel/): the data-parallel path at one NCCL rank against
+# the unsharded path. Budgets of (c) and (d): 600 steps with 100 of burn-in,
+# 20 steps a dispatch, evals and checkpoints every 200, convergence stopping
+# off, so both runs take every step.
+MESH = {"total_steps": 600, "burn_in_steps": 100, "steps_per": 20}
+MESH_EVERY = 200
+
+
+def phase_mesh(card: str) -> dict:
+    """The data-parallel mesh (parallel/mesh.py, parallel/train_step.py) at
+    world size 1 through its launcher: spawn_on_mesh starts one child
+    process on cuda:0 in an NCCL group met through a file:// rendezvous,
+    and the child (`mesh_rank`) holds every mesh path bit for bit against
+    the unsharded one (bench graph, float32 storage, d=128, B=512):
+    (b) make_sharded_train_step against loop.make_train_step on 4 host
+        batches alternating 2p and 3i: the losses, every leaf and both Adam
+        moments;
+    (c) run_train_device_mega(mesh=) against mesh=None on 7 × 300 queries
+        (600 steps, evals and checkpoints every 200): the loss series,
+        val_history, the final and best parameters, the last checkpoint's
+        state;
+    (d) run_train_onthefly(mesh=) against mesh=None on the protocol's
+        graph (1,760 nodes, 600 steps): the same;
+    (e) a mesh run resumed from (c)'s unsharded checkpoint at step 240
+        against the uninterrupted unsharded run;
+    (f) launches: fused_adam_leaf once per leaf a step and scatter_rows
+        once a step, the unsharded run's counts; the collectives per step;
+    (g) ms per step of each run, sharded beside unsharded."""
+    import torch
+
+    from graphqembed_tpu_torch.parallel import spawn_on_mesh
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = spawn_on_mesh(mesh_rank, 1, device="cuda", timeout=600)
+    got = {"phase": "mesh", "card": card,
+           "seconds": time.perf_counter() - t0, **got}
+    emit(got)
+    return got
+
+
+def _equal_trees(a, b, what: str):
+    """Every tensor of two trees of dicts, tuples and lists equal bit for
+    bit (Python numbers equal)."""
+    import torch
+
+    if isinstance(a, dict):
+        check(a.keys() == b.keys(), f"{what}: keys {a.keys()} != {b.keys()}")
+        for k in a:
+            _equal_trees(a[k], b[k], f"{what}/{k}")
+    elif isinstance(a, (tuple, list)):
+        check(len(a) == len(b), f"{what}: lengths differ")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _equal_trees(x, y, f"{what}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        check(a.shape == b.shape and torch.equal(a.detach(), b.detach()),
+              f"{what}: not bit for bit")
+    else:
+        check(a == b, f"{what}: {a} != {b}")
+
+
+def mesh_rank(mesh) -> dict:
+    """The child of phase_mesh: rank 0 of a one-rank NCCL mesh."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from graphqembed_tpu_torch.config import GQEConfig
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(mesh.size == 1 and mesh.device == torch.device("cuda", 0),
+          f"mesh {mesh}")
+    check(dist.get_backend(mesh.group) == "nccl", dist.get_backend(mesh.group))
+    graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    cfg = GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
+                    batch_size=512, lr=0.01, val_every=MESH_EVERY, tol=-1e9)
+    out = {"backend": "nccl", "world_size": mesh.size,
+           "device": str(mesh.device), "torch": torch.__version__}
+    out["step"] = mesh_step_check(mesh, cfg, graph)
+    tmp = Path(tempfile.mkdtemp(prefix="gqe-mesh-phase-"))
+    try:
+        out["device_mega"] = mesh_device_check(mesh, cfg, graph, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["onthefly"] = mesh_onthefly_check(mesh, cfg)
+    return out
+
+
+def _leaf_launches(counts: dict, steps: int, n_leaves: int, what: str):
+    check(counts == want_counts(fused_adam_leaf=n_leaves * steps,
+                                scatter_rows=steps),
+          f"{what}: launches {counts} over {steps} steps, want "
+          f"fused_adam_leaf {n_leaves}/step and scatter_rows 1/step")
+
+
+def mesh_step_check(mesh, cfg, graph) -> dict:
+    """(b): the host-batch step, sharded at W=1 against unsharded."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.models.params import (
+        init_params,
+        tree_leaves,
+        tree_map,
+    )
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.parallel import make_sharded_train_step
+    from graphqembed_tpu_torch.training.device_data import FusedAdamOpt
+    from graphqembed_tpu_torch.training.loop import (
+        TrainData,
+        make_train_step,
+        structure_weight,
+    )
+
+    sampler = QuerySampler(graph, np.random.default_rng(0), max_negs=30)
+    queries = sampler.sample_many("2p", 1500) + sampler.sample_many("3i", 1500)
+    data = TrainData(graph.schema, queries, cfg.batch_size, seed=1)
+    batches = [(s,) + tuple(data.sample_batch(s))
+               for s in ("2p", "3i", "2p", "3i")]
+    base = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+    opt = FusedAdamOpt(cfg.lr)
+    runs = {}
+    for name in ("unsharded", "sharded"):
+        params = tree_map(lambda x: x.detach().clone().requires_grad_(), base)
+        if name == "sharded":
+            params = pm.shard_params(params, mesh)
+            step = make_sharded_train_step(cfg, opt, mesh, params)
+        else:
+            step = make_train_step(cfg, opt)
+        state = opt.init(params)
+        reset_counts()
+        pm.reset_collective_counts()
+        losses = []
+        for s, *b in batches:
+            params, state, loss = step(params, state, s, *b,
+                                       structure_weight(cfg, s))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        runs[name] = {"params": params, "state": state,
+                      "losses": torch.stack(losses),
+                      "launches": read_counts(),
+                      "collectives": pm.collective_counts()}
+    u, s = runs["unsharded"], runs["sharded"]
+    _equal_trees(s["losses"], u["losses"], "step losses")
+    _equal_trees(s["params"], u["params"], "step params")
+    _equal_trees(s["state"], u["state"], "step Adam state")
+    check(s["launches"] == u["launches"], f"step launches {s['launches']} "
+          f"!= unsharded {u['launches']}")
+    n_leaves = len(tree_leaves(base))
+    check(s["launches"]["fused_adam_leaf"] == n_leaves * 4
+          and s["launches"]["scatter_rows"] > 0,
+          f"step launches {s['launches']}")
+    check(s["collectives"] == {"all_gather": 4, "reduce_scatter": 4,
+                               "all_reduce": 4, "broadcast": 0, "barrier": 0},
+          f"step collectives {s['collectives']}")
+    return {"losses": [float(v) for v in u["losses"]],
+            "launches": s["launches"], "collectives": s["collectives"],
+            "bit_for_bit": True}
+
+
+def _session(res, counts: dict, colls: dict) -> dict:
+    steps = res.timings["session_steps"]
+    return {"steps": res.steps, "session_steps": steps,
+            "ms_per_step": 1e3 * res.timings["train_s"] / steps,
+            "val_history": res.val_history, "launches": counts,
+            "collectives": colls}
+
+
+def _check_collectives(colls: dict, res, what: str):
+    """A mesh driver's collectives: one all-gather, reduce-scatter and
+    all-reduce a step; outside the steps one all-gather and one broadcast
+    an eval, four all-gathers (params, both moments, best) and a barrier a
+    checkpoint, two all-gathers for the result."""
+    steps = res.timings["session_steps"]
+    evals = len(res.val_history)
+    saves = colls["barrier"]
+    want = {"all_gather": steps + evals + 4 * saves + 2,
+            "reduce_scatter": steps, "all_reduce": steps, "broadcast": evals,
+            "barrier": saves}
+    check(colls == want, f"{what}: collectives {colls}, want {want}")
+
+
+def mesh_device_check(mesh, cfg, graph, tmp) -> dict:
+    """(c) and (e): run_train_device_mega at W=1 against unsharded, and a
+    mesh resume from the unsharded run's checkpoint."""
+    import shutil
+
+    import torch
+
+    from graphqembed_tpu_torch.models.params import init_params, tree_leaves
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+        latest_step_dir,
+        load_checkpoint,
+    )
+    from graphqembed_tpu_torch.training.device_data import (
+        DeviceTrainData,
+        run_train_device_mega,
+    )
+
+    queries, val = _mesh_data(graph)
+    n_leaves = None
+
+    def run(mesh_arg, ckdir, resume=False):
+        nonlocal n_leaves
+        params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+        n_leaves = len(tree_leaves(params))
+        data = DeviceTrainData(graph.schema, queries)
+        reset_counts()
+        pm.reset_collective_counts()
+        res = run_train_device_mega(
+            cfg, graph.schema, params, data, val_queries=val,
+            ckpt_manager=CheckpointManager(ckdir, keep=3),
+            ckpt_every=MESH_EVERY, resume=resume, mesh=mesh_arg, **MESH)
+        torch.cuda.synchronize()
+        return res, read_counts(), pm.collective_counts()
+
+    u, u_n, _ = run(None, tmp / "unsharded")
+    s, s_n, s_c = run(mesh, tmp / "sharded")
+    for what, a, b in (("losses", s.losses, u.losses),
+                       ("val_history", s.val_history, u.val_history),
+                       ("params", s.params, u.params),
+                       ("best_params", s.best_params, u.best_params)):
+        _equal_trees(a, b, f"device_mega {what}")
+    check(s.steps == u.steps >= MESH["total_steps"], f"steps {s.steps} {u.steps}")
+    ck_u, meta_u = load_checkpoint(latest_step_dir(tmp / "unsharded"), "cpu")
+    ck_s, meta_s = load_checkpoint(latest_step_dir(tmp / "sharded"), "cpu")
+    _equal_trees(ck_s, ck_u, "device_mega checkpoint")
+    check(meta_s == meta_u, f"checkpoint meta {meta_s} != {meta_u}")
+    check(s_n == u_n, f"device_mega launches {s_n} != unsharded {u_n}")
+    _leaf_launches(s_n, s.steps, n_leaves, "device_mega")
+    _check_collectives(s_c, s, "device_mega")
+
+    # (e): resume the mesh run from the unsharded run's first checkpoint
+    shutil.copytree(tmp / "unsharded", tmp / "resume")
+    steps_saved = sorted(d.name for d in (tmp / "resume").iterdir()
+                         if d.name.startswith("step_"))
+    check(len(steps_saved) >= 2, f"checkpoints {steps_saved}")
+    for name in steps_saved[1:]:
+        shutil.rmtree(tmp / "resume" / name)
+    r, r_n, r_c = run(mesh, tmp / "resume", resume=True)
+    k = len(r.val_history)
+    check(k >= 1 and r.val_history == u.val_history[-k:],
+          f"resumed val_history {r.val_history} against {u.val_history}")
+    for st, vs in r.losses.items():
+        _equal_trees(vs, u.losses[st][len(u.losses[st]) - len(vs):],
+                     f"resumed losses {st}")
+    _equal_trees(r.params, u.params, "resumed params")
+    _equal_trees(r.best_params, u.best_params, "resumed best_params")
+    _leaf_launches(r_n, r.timings["session_steps"], n_leaves, "resumed")
+    _check_collectives(r_c, r, "resumed")
+    return {"unsharded": _session(u, u_n, {}),
+            "sharded": _session(s, s_n, s_c),
+            "resumed": {"from": steps_saved[0], **_session(r, r_n, r_c)},
+            "bit_for_bit": True}
+
+
+def mesh_onthefly_check(mesh, cfg) -> dict:
+    """(d): run_train_onthefly at W=1 against unsharded on the protocol's
+    graph."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.config import STRUCTURES
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph_latent
+    from graphqembed_tpu_torch.models.params import init_params, tree_leaves
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.training.device_sampler import (
+        DeviceGraph,
+        run_train_onthefly,
+    )
+
+    graph = synthetic_graph_latent(seed=0, scale=2.0, avg_degree=8.0)
+    check(graph.schema.n_nodes == 1760, graph.schema.n_nodes)
+    sampler = QuerySampler(graph, np.random.default_rng(0), max_negs=50)
+    val = [q for s in STRUCTURES for q in sampler.sample_many(s, 50)]
+    cfg = dc.replace(cfg, lr=0.03)
+    dg = DeviceGraph.build(graph, sample_size=8, seed=0)
+    runs = {}
+    for name, mesh_arg in (("unsharded", None), ("sharded", mesh)):
+        params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+        n_leaves = len(tree_leaves(params))
+        reset_counts()
+        pm.reset_collective_counts()
+        res = run_train_onthefly(cfg, graph.schema, params, dg,
+                                 val_queries=val, mesh=mesh_arg, **MESH)
+        torch.cuda.synchronize()
+        runs[name] = (res, read_counts(), pm.collective_counts())
+    (u, u_n, _), (s, s_n, s_c) = runs["unsharded"], runs["sharded"]
+    for what, a, b in (("losses", s.losses, u.losses),
+                       ("val_history", s.val_history, u.val_history),
+                       ("params", s.params, u.params),
+                       ("best_params", s.best_params, u.best_params)):
+        _equal_trees(a, b, f"onthefly {what}")
+    check(s.steps == u.steps >= MESH["total_steps"], f"steps {s.steps} {u.steps}")
+    check(s_n == u_n, f"onthefly launches {s_n} != unsharded {u_n}")
+    _leaf_launches(s_n, s.steps, n_leaves, "onthefly")
+    _check_collectives(s_c, s, "onthefly")
+    return {"unsharded": _session(u, u_n, {}), "sharded": _session(s, s_n, s_c),
+            "bit_for_bit": True}
+
+
+# The mesh across the cards of one host (its own chip call with four cards;
+# main needs one). Shorter than phase mesh: the runs are compared within the
+# one-process run's tolerances, not bit for bit, and the reassociated sums
+# drift further apart with every step.
+MESH_CARDS = {"total_steps": 200, "burn_in_steps": 50, "steps_per": 10}
+MESH_CARDS_TOL = {"loss_rtol": 2e-2, "auc": 0.02, "table_mean": 1e-3,
+                  "table_far": 0.01, "table_far_share": 0.01}
+
+
+def _mesh_data(graph):
+    """Phase mesh's 7 × 300 train and 7 × 50 val queries of `graph`."""
+    import numpy as np
+
+    from graphqembed_tpu_torch.config import STRUCTURES
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+
+    sampler = QuerySampler(graph, np.random.default_rng(7), max_negs=30)
+    queries = [q for s in STRUCTURES for q in sampler.sample_many(s, 300)]
+    val = [q for s in STRUCTURES for q in sampler.sample_many(s, 50)]
+    return queries, val
+
+
+def _mesh_cards_runs(mesh) -> dict:
+    """run_train_device_mega on the bench graph's multitask queries and
+    run_train_onthefly on the protocol's graph, float32, d=128, B=512, on
+    `mesh` (None: this process, cuda:0): {name: session and result}."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.config import STRUCTURES, GQEConfig
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.graph.synthetic import (
+        synthetic_graph,
+        synthetic_graph_latent,
+    )
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.training.device_data import (
+        DeviceTrainData,
+        run_train_device_mega,
+    )
+    from graphqembed_tpu_torch.training.device_sampler import (
+        DeviceGraph,
+        run_train_onthefly,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
+                    batch_size=512, lr=0.01, val_every=100, tol=-1e9)
+    bench = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    queries, val = _mesh_data(bench)
+    latent = synthetic_graph_latent(seed=0, scale=2.0, avg_degree=8.0)
+    lval = [q for s in STRUCTURES for q in QuerySampler(
+        latent, np.random.default_rng(0), max_negs=50).sample_many(s, 50)]
+    out = {}
+    for name in ("device_mega", "onthefly"):
+        graph = bench if name == "device_mega" else latent
+        c = cfg if name == "device_mega" else dc.replace(cfg, lr=0.03)
+        params = init_params(c, graph.schema, torch.Generator().manual_seed(0))
+        reset_counts()
+        pm.reset_collective_counts()
+        if name == "device_mega":
+            res = run_train_device_mega(
+                c, graph.schema, params, DeviceTrainData(graph.schema, queries),
+                val_queries=val, mesh=mesh, **MESH_CARDS)
+        else:
+            res = run_train_onthefly(
+                c, graph.schema, params, DeviceGraph.build(graph, sample_size=8),
+                val_queries=lval, mesh=mesh, **MESH_CARDS)
+        torch.cuda.synchronize()
+        out[name] = {
+            "session": _session(res, read_counts(), pm.collective_counts()),
+            "losses": res.losses,
+            "n_nodes": graph.schema.n_nodes,
+            "table": res.params["table"].detach().cpu(),
+            "best_table": res.best_params["table"].detach().cpu(),
+            "qps": res.queries_per_sec}
+    return out
+
+
+def mesh_cards_rank(mesh) -> dict:
+    """One rank of phase_mesh_cards."""
+    return _mesh_cards_runs(mesh)
+
+
+def _close_runs(m: dict, one: dict, n: int, what: str) -> dict:
+    """The n-rank run `m` against the one-process run `one`: the same steps
+    and eval steps, the loss series within MESH_CARDS_TOL's rtol, each val
+    macro AUC within its bound, whole unpadded tables that agree in
+    aggregate (tests/test_sharded_trainer.py's criteria)."""
+    import numpy as np
+
+    t = MESH_CARDS_TOL
+    ms, os_ = m["session"], one["session"]
+    check(ms["steps"] == os_["steps"], f"{what}: steps {ms['steps']} {os_['steps']}")
+    check([s for s, _ in ms["val_history"]] == [s for s, _ in os_["val_history"]],
+          f"{what}: eval steps {ms['val_history']} {os_['val_history']}")
+    auc_diff = max(abs(a - b) for (_, a), (_, b) in
+                   zip(ms["val_history"], os_["val_history"]))
+    check(auc_diff <= t["auc"], f"{what}: val AUC differs by {auc_diff}")
+    loss_rel = 0.0
+    for s, vs in one["losses"].items():
+        a, b = np.asarray(m["losses"][s]), np.asarray(vs)
+        check(a.shape == b.shape, f"{what}: {s} losses {a.shape} {b.shape}")
+        if len(b):
+            loss_rel = max(loss_rel, float(np.max(np.abs(a - b) / np.abs(b))))
+    check(loss_rel <= t["loss_rtol"], f"{what}: losses differ by {loss_rel} (relative)")
+    check(m["table"].shape == one["table"].shape == (one["n_nodes"], 128),
+          f"{what}: tables {tuple(m['table'].shape)} {tuple(one['table'].shape)}")
+    diff = (m["table"] - one["table"]).abs()
+    mean, far = float(diff.mean()), float((diff > t["table_far"]).float().mean())
+    check(mean < t["table_mean"] and far < t["table_far_share"],
+          f"{what}: table mean |diff| {mean}, share > {t['table_far']}: {far}")
+    n_leaves = 4
+    steps = ms["session_steps"]
+    check(ms["launches"] == want_counts(fused_adam_leaf=n_leaves * steps,
+                                        scatter_rows=steps),
+          f"{what}: rank 0 launches {ms['launches']}")
+    evals = len(ms["val_history"])
+    # sharding the caller's parameters broadcasts the 3 replicated leaves
+    want = {"all_gather": steps + evals + 2, "reduce_scatter": steps,
+            "all_reduce": steps, "broadcast": evals + n_leaves - 1, "barrier": 0}
+    check(ms["collectives"] == want, f"{what}: collectives {ms['collectives']}, want {want}")
+    return {"ranks": n, "steps": steps, "val_history": ms["val_history"],
+            "val_history_one": os_["val_history"], "max_auc_diff": auc_diff,
+            "max_loss_rel_diff": loss_rel, "table_mean_abs_diff": mean,
+            "table_share_far": far, "ms_per_step": ms["ms_per_step"],
+            "ms_per_step_one": os_["ms_per_step"], "qps": m["qps"],
+            "qps_one": one["qps"], "launches_rank0": ms["launches"],
+            "collectives_rank0": ms["collectives"]}
+
+
+def _cli_auto_mesh(n: int, pipeline: str, tmp) -> dict:
+    """gqe-torch-train with no --mesh on this n-card host: the auto rule
+    picks gcd(n, 512) = n ranks; one metrics.json, an n_nodes-row best/."""
+    import torch
+
+    md = tmp / pipeline
+    md.mkdir(parents=True)
+    flags = ["--synthetic", "--dataset", "bio-latent", "--synthetic_scale",
+             "2.0", "--n_train_queries", "300", "--n_val_queries", "50",
+             "--max_iter", "400", "--max_burn_in", "100", "--val_every",
+             "200", "--tol=-1e9", "--pipeline", pipeline, "--model_dir",
+             str(md), "--log_dir", str(md)]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, *CLI, *flags], capture_output=True,
+                       text=True, timeout=600, env=dict(os.environ, PYTHONPATH=os.getcwd()))
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"CLI {pipeline}: rc {r.returncode}\n{r.stderr[-3000:]}")
+    log = (md / "train.log").read_text()
+    check(f"{n}-device DP mesh" in log, f"CLI {pipeline}: no {n}-rank mesh in the log")
+    metrics = json.loads((md / "metrics.json").read_text())
+    check(json.loads(r.stdout.strip().splitlines()[-1]) == metrics,
+          f"CLI {pipeline}: printed line != metrics.json")
+    best = torch.load(md / "best" / "state.pt", map_location="cpu",
+                      weights_only=True)["params"]["table"]
+    check(best.shape == (1760, 128), f"CLI {pipeline}: best table {tuple(best.shape)}")
+    return {"wall_s": wall, "steps": metrics["steps"],
+            "best_val_auc": metrics["best_val_auc"],
+            "final_macro_auc": metrics["final_auc"]["macro"],
+            "queries_per_sec": metrics["queries_per_sec"]}
+
+
+def phase_mesh_cards(n: int = 4) -> dict:
+    """The data-parallel mesh across n cards of this host (NCCL, rank r on
+    cuda:r), run as its own chip call: `python3 -c "import chip_smoke as c;
+    c.phase_mesh_cards(4)"`. spawn_on_mesh(mesh_cards_rank, n) trains
+    run_train_device_mega (the bench graph's 7 × 300 queries) and
+    run_train_onthefly (the protocol's graph), 200 steps each, float32,
+    d=128, B=512 (B/n rows a rank); this process trains both on cuda:0
+    without a mesh; `_close_runs` holds them together. Then gqe-torch-train
+    with no --mesh on both pipelines (the auto rule picks the n-card mesh).
+    Prints one JSON line and returns it."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from graphqembed_tpu_torch.parallel import spawn_on_mesh
+
+    check(torch.cuda.device_count() >= n,
+          f"{n} cards wanted, {torch.cuda.device_count()} visible")
+    card = card_name_and_power()
+    t0 = time.perf_counter()
+    meshed = spawn_on_mesh(mesh_cards_rank, n, device="cuda", timeout=900)
+    mesh_s = time.perf_counter() - t0
+    one = _mesh_cards_runs(None)
+    out = {"phase": "mesh_cards", "card": card, "cards": n,
+           "mesh_s": mesh_s, "tolerance": MESH_CARDS_TOL}
+    for name in ("device_mega", "onthefly"):
+        out[name] = _close_runs(meshed[name], one[name], n, name)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli"] = {p: _cli_auto_mesh(n, p, Path(tmp))
+                      for p in ("device", "onthefly")}
+    emit(out)
+    return out
 
 
 def _batch_count(queries, structures, batch_size):
@@ -2563,6 +3087,7 @@ def main(argv):
                                         trained["train_qps"])
     phase_train_sparse(dev, card, work)
     phase_multitask(dev, card, work)
+    mesh = phase_mesh(card)
     eval_launches = phase_eval(trained, card)
     protocol, onthefly, deep, stream, protocol_data = protocol_phases(
         dev, card, work, "--profile" in argv)
@@ -2612,6 +3137,17 @@ def main(argv):
         row["launches_onthefly"] = onthefly["headline"]["launches"][row["name"]]
         row["launches_deep"] = deep_launches[row["name"]]
         row["launches_stream"] = stream_launches(row["name"])
+    def mesh_launches(name):
+        """Phase mesh's launches of `name` in its sharded runs: (b) the
+        host-batch steps, (c) run_train_device_mega, (e) its resume, (d)
+        run_train_onthefly."""
+        dm = mesh["device_mega"]
+        return {"step": mesh["step"]["launches"][name],
+                "device_mega": dm["sharded"]["launches"][name],
+                "resumed": dm["resumed"]["launches"][name],
+                "onthefly": mesh["onthefly"]["sharded"]["launches"][name]}
+
+    kernels[0]["launches_mesh"] = mesh_launches("fused_adam_leaf")
     rows_k = kern["fused_adam_table_sorted_rows_sr"]
     rows_t = rows_k["timing"]["bench_3i_batch"]
     kernels.append(
@@ -2635,6 +3171,7 @@ def main(argv):
          "launches_onthefly": onthefly["headline"]["launches"]["scatter_rows"],
          "launches_deep": deep_launches["scatter_rows"],
          "launches_stream": stream_launches("scatter_rows"),
+         "launches_mesh": mesh_launches("scatter_rows"),
          **oracle_keys("scatter_rows"),
          "max_abs_err": sc["max_abs_err"],
          "ms": sc_t["ms"], "plain_ms": sc_t["plain_ms"],

@@ -17,8 +17,10 @@ shards) through fixed windows on the device (data/grain_pipeline.py) and
 never holds the training set in memory. --depth 1 or 2 trains the SAGE
 encoder (models/encoders.py, --aggregator mean or pool) over neighbor
 tables of --neighbor_samples neighbors per relation, on every pipeline and
-in the final evals. Not ported yet, and refused naming the ROADMAP item:
---mesh N > 1 (Queue 1 item 11).
+in the final evals. --mesh N > 1 (--pipeline device or onthefly, float32
+storage, N dividing --batch_size, JAX's rules) trains data-parallel in N
+processes (parallel/): one per card with NCCL, or with gloo under --cpu;
+rank 0 logs, runs the final evals and writes metrics.json and best/.
 """
 
 from __future__ import annotations
@@ -31,11 +33,6 @@ from pathlib import Path
 
 import numpy as np
 import torch
-
-UNPORTED = {
-    "mesh": "--mesh N > 1 (the distributed trainer) is not ported yet: "
-            "ROADMAP Queue 1 item 11",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -118,9 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="restart from the latest checkpoint in model_dir")
     p.add_argument("--mesh", type=int, default=0,
-                   help="devices in the DP mesh (not ported yet beyond one). "
-                        "0 = auto (all visible devices when >1); 1 = force "
-                        "single-device")
+                   help="ranks of the data-parallel mesh, one process each "
+                        "(one card each; CPU processes under --cpu). 0 = "
+                        "auto (all visible cards, shrunk to divide the "
+                        "batch, for float32 device/onthefly runs); 1 = "
+                        "force single-device")
     return p
 
 
@@ -199,14 +198,36 @@ def main(argv=None):
     if n_mesh == 0 and args.pipeline in ("device", "onthefly") \
             and args.storage_dtype == "float32":
         # the auto rule: all visible devices, shrunk to divide the batch
+        # (DP splits the batch axis)
         n_visible = 1 if device == "cpu" else torch.cuda.device_count()
         n_mesh = math.gcd(n_visible, args.batch_size)
     if n_mesh > 1:
-        raise SystemExit(UNPORTED["mesh"])
+        if args.pipeline not in ("device", "onthefly"):
+            raise SystemExit("--mesh N>1 needs --pipeline device or onthefly "
+                             "(the data-parallel mega-step pipelines)")
+        if args.storage_dtype != "float32":
+            raise SystemExit("--mesh N>1 requires --storage_dtype float32 "
+                             "(the stochastic-rounding bfloat16 optimizer is "
+                             "single-device)")
+        if args.batch_size % n_mesh:
+            raise SystemExit(f"--mesh {n_mesh} must divide --batch_size "
+                             f"{args.batch_size} (DP splits the batch axis)")
     if args.pipeline == "stream" and args.data_dir is None:
         raise SystemExit("--pipeline stream needs --data_dir with saved npz "
                          "query shards (gqe-sample output)")
+    if n_mesh > 1:
+        from graphqembed_tpu_torch.parallel.mesh import spawn_on_mesh
+        metrics = spawn_on_mesh(train, n_mesh, args, device=device)
+    else:
+        metrics = train(None, args, device)
+    print(json.dumps(metrics))
+    return 0
 
+
+def train(mesh, args, device=None):
+    """The run behind main() on `device`, or on this rank of `mesh` (one
+    rank of parallel/mesh.py::spawn_on_mesh). Returns the metrics dict
+    (None on ranks other than 0, which log and write nothing)."""
     from graphqembed_tpu_torch.config import GQEConfig
     from graphqembed_tpu_torch.models.encoders import NeighborTables
     from graphqembed_tpu_torch.models.params import init_params
@@ -222,11 +243,17 @@ def main(argv=None):
     )
     from graphqembed_tpu_torch.training.metrics import MetricsWriter
 
-    logging.basicConfig(
-        level=logging.INFO,
-        format="%(asctime)s %(levelname)s %(message)s",
-        filename=args.log_dir and str(Path(args.log_dir) / "train.log"),
-    )
+    lead = mesh is None or mesh.rank == 0
+    if lead:
+        logging.basicConfig(
+            level=logging.INFO,
+            format="%(asctime)s %(levelname)s %(message)s",
+            filename=args.log_dir and str(Path(args.log_dir) / "train.log"),
+        )
+    if mesh is not None:
+        device = mesh.device
+        logging.info("distributed trainer: %d-device DP mesh, row-sharded "
+                     "table", mesh.size)
     cfg = GQEConfig(
         embed_dim=args.embed_dim,
         projection=args.decoder,
@@ -249,7 +276,8 @@ def main(argv=None):
     )
     model_dir = Path(args.model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
-    (model_dir / "config.json").write_text(cfg.to_json())
+    if lead:
+        (model_dir / "config.json").write_text(cfg.to_json())
 
     graph, train, val = load_dataset(
         args, skip_train=args.pipeline in ("onthefly", "stream"))
@@ -267,10 +295,12 @@ def main(argv=None):
     mgr = None
     if args.ckpt_every or args.resume:
         mgr = CheckpointManager(model_dir / "ckpts", keep=3)
-    writer = MetricsWriter(model_dir, tensorboard=True)
-    log = lambda step, s, l: (  # noqa: E731
-        logging.info("step %d [%s] loss %.4f", step, s, l),
-        writer.write(step, **{f"loss/{s}": l}))[0]
+    writer = log = None
+    if lead:
+        writer = MetricsWriter(model_dir, tensorboard=True)
+        log = lambda step, s, l: (  # noqa: E731
+            logging.info("step %d [%s] loss %.4f", step, s, l),
+            writer.write(step, **{f"loss/{s}": l}))[0]
     if args.pipeline == "stream":
         from graphqembed_tpu_torch.data.grain_pipeline import run_train_stream
         res = run_train_stream(
@@ -289,22 +319,24 @@ def main(argv=None):
             cfg, graph.schema, params, dg, val_queries=val,
             steps_per=dispatch_steps_per(args.max_iter), optimizer=optimizer,
             neighbor_tables=tables, ckpt_manager=mgr,
-            ckpt_every=args.ckpt_every, resume=args.resume, device=device,
-            log=log)
+            ckpt_every=args.ckpt_every, resume=args.resume, mesh=mesh,
+            device=device, log=log)
     elif args.pipeline == "device":
         data = DeviceTrainData(graph.schema, train, device=device)
         res = run_train_device_mega(
             cfg, graph.schema, params, data, val_queries=val,
             steps_per=dispatch_steps_per(args.max_iter), optimizer=optimizer,
             neighbor_tables=tables, ckpt_manager=mgr,
-            ckpt_every=args.ckpt_every, resume=args.resume, device=device,
-            log=log)
+            ckpt_every=args.ckpt_every, resume=args.resume, mesh=mesh,
+            device=device, log=log)
     else:
         res = run_train(cfg, graph.schema, params, train, val_queries=val,
                         neighbor_tables=tables, ckpt_manager=mgr,
                         ckpt_every=args.ckpt_every,
                         resume=args.resume, metrics=writer,
                         optimizer=optimizer, device=device)
+    if not lead:
+        return None
     writer.close()
 
     metrics = {
@@ -327,8 +359,7 @@ def main(argv=None):
     (model_dir / "metrics.json").write_text(json.dumps(metrics, indent=2))
     save_checkpoint(model_dir / "best", res.best_params, step=res.steps)
     logging.info("done: %s", json.dumps(metrics))
-    print(json.dumps(metrics))
-    return 0
+    return metrics
 
 
 if __name__ == "__main__":

@@ -203,11 +203,23 @@ def soft_and_scores(cfg: GQEConfig, params: Params, structure: str,
     return combined
 
 
+def mask_denominator(row_mask: torch.Tensor,
+                     dtype=torch.float32) -> torch.Tensor:
+    """The margin loss's divisor: the count of valid rows, at least 1."""
+    return torch.clamp_min(torch.sum(row_mask.to(dtype)), 1.0)
+
+
 def _masked_margin(cfg: GQEConfig, pos: torch.Tensor, neg: torch.Tensor,
-                   row_mask: torch.Tensor) -> torch.Tensor:
+                   row_mask: torch.Tensor, denom=None) -> torch.Tensor:
+    """Σ relu(margin − pos + neg) over the valid rows, over `denom` (None:
+    the rows' own `mask_denominator`). A data-parallel rank passes the
+    whole batch's (parallel/train_step.py), so the ranks' losses sum to
+    the whole batch's."""
     per_row = torch.relu(cfg.margin - pos + neg)
     w = row_mask.to(per_row.dtype)
-    return torch.sum(per_row * w) / torch.clamp_min(torch.sum(w), 1.0)
+    if denom is None:
+        denom = mask_denominator(row_mask, per_row.dtype)
+    return torch.sum(per_row * w) / denom
 
 
 def soft_and_margin_loss(cfg: GQEConfig, params: Params, structure: str,
@@ -371,7 +383,7 @@ def margin_loss_rows_onegather(cfg: GQEConfig, params: Params, structure: str,
                                inter_modes: torch.Tensor,
                                targets: torch.Tensor, negs: torch.Tensor,
                                row_mask: torch.Tensor,
-                               encode_fn=None) -> torch.Tensor:
+                               encode_fn=None, denom=None) -> torch.Tensor:
     """Margin loss with ONE encoder call for anchors, target and negative:
     under the direct encoder one table gather, so the backward builds a
     single dense table gradient; under encode_fn (the SAGE encoder) one
@@ -388,7 +400,7 @@ def margin_loss_rows_onegather(cfg: GQEConfig, params: Params, structure: str,
     q = embed_query_folded(cfg, params, structure, normed[:, :a], rels,
                            inter_modes)
     pn = score(q, normed[:, a:], cfg.scoring)
-    return _masked_margin(cfg, pn[:, 0], pn[:, 1], row_mask)
+    return _masked_margin(cfg, pn[:, 0], pn[:, 1], row_mask, denom)
 
 
 def margin_loss_rows(cfg: GQEConfig, params: Params, structure: str,
@@ -420,12 +432,13 @@ def forward_scores(cfg: GQEConfig, params: Params, structure: str,
 def margin_loss(cfg: GQEConfig, params: Params, structure: str,
                 anchors: torch.Tensor, rels, inter_mode_id,
                 targets: torch.Tensor, negs: torch.Tensor,
-                row_mask: torch.Tensor, encode_fn=None) -> torch.Tensor:
+                row_mask: torch.Tensor, encode_fn=None,
+                denom=None) -> torch.Tensor:
     """Mean max-margin loss over valid rows of one formula batch; negs [B]
-    (one per query)."""
+    (one per query). denom: see _masked_margin."""
     enc = _encoder(params, encode_fn)
     q = embed_query(cfg, params, structure, anchors, rels, inter_mode_id,
                     encode_fn)
     pos = score(q, enc(targets), cfg.scoring)
     neg = score(q, enc(negs), cfg.scoring)
-    return _masked_margin(cfg, pos, neg, row_mask)
+    return _masked_margin(cfg, pos, neg, row_mask, denom)

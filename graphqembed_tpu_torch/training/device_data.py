@@ -53,7 +53,7 @@ from graphqembed_tpu_torch.models.params import (
     tree_paths,
 )
 from graphqembed_tpu_torch.ops.fused_adam import fused_adam_tree, presort_row_ids
-from graphqembed_tpu_torch.training.eval import eval_auc
+from graphqembed_tpu_torch.parallel.train_step import MeshRun
 from graphqembed_tpu_torch.training.loop import (
     TrainResult,
     check_conv,
@@ -536,19 +536,31 @@ def make_multitask_mega_step(cfg: GQEConfig, optimizer,
     as JAX folds the dispatch index into its key). neighbor_tables drives
     the SAGE encoder at cfg.depth > 0 (make_scan_train_step).
 
+    mesh (parallel/mesh.py::Mesh): the data-parallel mega-step, each call
+    of make_sharded_scan_train_step (parallel/train_step.py): every rank
+    draws the same batches from its whole pools and trains its rows of
+    each, with params this rank's (parallel.shard_params). Float32 storage
+    only, and the mesh's size divides the batch (ValueError otherwise).
+
     Returns run(params, opt_state, key, n_rounds, steps_per)
     -> (params, opt_state, losses [n_rounds, n_structures] on the device)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
-            "parallel/)")
     _check_storage_optimizer(cfg, optimizer)
+    if mesh is not None:
+        from graphqembed_tpu_torch.parallel.train_step import (
+            check_mesh_config,
+            make_sharded_scan_train_step,
+        )
+        check_mesh_config(cfg, mesh)
     structures = list(structures or data.structures)
     weights = [structure_weight(cfg, s) for s in structures]
     use_hards = [s in INTERSECT_STRUCTURES and cfg.hard_neg_alternate
                  for s in structures]
     pools = [data.pools[s] for s in structures]
-    scan = make_scan_train_step(cfg, optimizer, neighbor_tables)
+    if mesh is None:
+        scan = make_scan_train_step(cfg, optimizer, neighbor_tables)
+    else:
+        scan = make_sharded_scan_train_step(cfg, optimizer, mesh,
+                                            neighbor_tables)
 
     def run(params, opt_state, key, n_rounds: int, steps_per: int):
         path = key if isinstance(key, tuple) else (key,)
@@ -643,16 +655,18 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
     - val_queries may be a callable too, resolved at the first eval;
     - neighbor_tables: the SAGE encoder at cfg.depth > 0, in the steps and
       in the evals (placed on `device` once);
-    - queries_per_sec counts this session's steps over this session's train
-      seconds; timings has the seconds per phase and session_steps."""
+    - queries_per_sec counts this session's steps (of the whole batch)
+      over this session's train seconds; timings has the seconds per phase
+      and session_steps;
+    - mesh (parallel/mesh.py::Mesh): every rank of the mesh calls this
+      with the same arguments, its pools on mesh.device (`device` is
+      mesh.device); see `MeshRun`.
+    """
     import time
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
-            "parallel/)")
-    dev = resolve_device(device)
-    check_placed(dev, "params", params["table"])
+    run = MeshRun(cfg, schema, mesh, device)
+    dev = run.device
+    params = run.place(params)
     for s, pool in data.pools.items():
         check_placed(dev, f"the {s} pool", pool.anchors)
     tables = None if neighbor_tables is None else neighbor_tables.to(dev)
@@ -663,7 +677,7 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
     opt_state = optimizer.init(params)
     seed = cfg.seed if seed is None else seed
     mega_burn = (make_multitask_mega_step(cfg, optimizer, data, ["1p"],
-                                          neighbor_tables=tables)
+                                          neighbor_tables=tables, mesh=mesh)
                  if "1p" in data.pools else None)
     # mega_all is built AFTER burn-in (below): with deferred_pools, the
     # non-1p pools may still be building while burn-in runs
@@ -681,7 +695,7 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
     last_ckpt = 0
 
     if resume and ckpt_manager is not None:
-        restored = ckpt_manager.restore_latest(device=dev)
+        restored = run.restore(ckpt_manager)
         if restored is not None:
             state, meta = restored
             params = state["params"]
@@ -711,12 +725,11 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
         if ckpt_manager is not None and ckpt_every and \
                 done - last_ckpt >= ckpt_every:
             tc = time.time()
-            ckpt_manager.save_state(
-                done,
-                {"params": params, "opt_state": opt_state,
-                 "best_params": best_params},
-                extra={"dispatch_i": dispatch_i, "best_macro": best_macro,
-                       "burn_in_steps": actual_burn_in, "phase": phase})
+            run.save(ckpt_manager, done,
+                     {"params": params, "opt_state": opt_state,
+                      "best_params": best_params},
+                     {"dispatch_i": dispatch_i, "best_macro": best_macro,
+                      "burn_in_steps": actual_burn_in, "phase": phase})
             t_ckpt += time.time() - tc
             last_ckpt = done
 
@@ -750,7 +763,7 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
 
     # --- multitask rounds with eval / ckpt / convergence ---
     mega_all = make_multitask_mega_step(cfg, optimizer, data,
-                                        neighbor_tables=tables)
+                                        neighbor_tables=tables, mesh=mesh)
     n_struct = len(data.structures)
     eval_every = max(1, min(cfg.val_every, total_steps - done)
                      ) if total_steps > done else 1
@@ -765,10 +778,8 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
             val_queries = resolve_queries(val_queries)
             t_val_wait += time.time() - te
             te = time.time()
-            aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed,
-                            neighbor_tables=tables)
+            macro = run.val_macro(params, val_queries, tables)
             t_eval += time.time() - te
-            macro = aucs.get("macro", 0.0)
             val_history.append((done, macro))
             if macro > best_macro:
                 best_macro = macro
@@ -783,15 +794,13 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
         # burn-in took the whole budget (or total_steps == 0): evaluate
         # once so best_val_auc is never a meaningless -1
         val_queries = resolve_queries(val_queries)
-        aucs = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed,
-                        neighbor_tables=tables)
-        macro = aucs.get("macro", 0.0)
+        macro = run.val_macro(params, val_queries, tables)
         val_history.append((done, macro))
         best_macro, best_params = macro, params
     session_steps = done - start_done
     return TrainResult(
-        params=params,
-        best_params=best_params if best_macro >= 0 else params,
+        params=run.whole(params),
+        best_params=run.whole(best_params if best_macro >= 0 else params),
         best_val_auc=best_macro,
         steps=done,
         burn_in_steps=actual_burn_in,

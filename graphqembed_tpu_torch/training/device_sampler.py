@@ -59,6 +59,7 @@ from graphqembed_tpu_torch.graph.schema import Schema
 from graphqembed_tpu_torch.models import gqe
 from graphqembed_tpu_torch.models.encoders import NeighborTables, deep_tables
 from graphqembed_tpu_torch.models.params import tree_clone
+from graphqembed_tpu_torch.parallel.train_step import MeshRun
 from graphqembed_tpu_torch.training.device_data import (
     _check_storage_optimizer,
     _hard_step,
@@ -67,7 +68,6 @@ from graphqembed_tpu_torch.training.device_data import (
     default_optimizer,
     derived_generator,
 )
-from graphqembed_tpu_torch.training.eval import eval_auc
 from graphqembed_tpu_torch.training.loop import (
     TrainResult,
     check_conv,
@@ -565,14 +565,23 @@ def make_onthefly_train_step(cfg: GQEConfig, optimizer, dg: DeviceGraph,
     neighbor_tables drives the SAGE encoder at cfg.depth > 0 (required
     there; placed on the device graph's device).
 
+    mesh (parallel/mesh.py::Mesh): every rank samples the same whole
+    dispatch (the same draws from the same generator) and trains its rows
+    of each batch, the loss over the whole batch's valid rows
+    (parallel/train_step.py::sharded_body); params are this rank's. JAX's
+    GSPMD also splits the sampling; here each rank samples all of it.
+    Float32 storage only, and the mesh's size divides the batch.
+
     Returns run(params, opt_state, structure, generator, n_steps, weight,
     use_hard) -> (params, opt_state, mean_loss), everything updated in
     place and mean_loss a 0-d tensor on the device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
-            "parallel/)")
     _check_storage_optimizer(cfg, optimizer)
+    if mesh is not None:
+        from graphqembed_tpu_torch.parallel.train_step import (
+            check_mesh_config,
+            sharded_body,
+        )
+        check_mesh_config(cfg, mesh)
     tables = deep_tables(cfg, neighbor_tables)
     if tables is not None:
         tables = tables.to(dg.device)
@@ -583,7 +592,11 @@ def make_onthefly_train_step(cfg: GQEConfig, optimizer, dg: DeviceGraph,
             n_steps: int, weight: float, use_hard: bool = False):
         batch_xs = sample_dispatch(cfg, dg, torch_draw(generator), structure,
                                    n_steps, use_hard)
-        body = _train_body(dense, optimizer, structure, weight, tables)
+        if mesh is None:
+            body = _train_body(dense, optimizer, structure, weight, tables)
+        else:
+            body = sharded_body(dense, optimizer, mesh, structure, weight,
+                                tables)
         (params, opt_state), losses = _scan(body, (params, opt_state),
                                             batch_xs)
         return params, opt_state, losses.mean()
@@ -617,13 +630,15 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
     an uninterrupted one. queries_per_sec counts this session's steps over
     this session's train seconds; timings has the seconds per phase and
     session_steps. neighbor_tables drives the SAGE encoder at cfg.depth >
-    0, in the steps and the evals. Returns a training/loop.py::TrainResult."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training is not ported yet (ROADMAP Queue 1 item 11, "
-            "parallel/)")
-    dev = resolve_device(device)
-    check_placed(dev, "params", params["table"])
+    0, in the steps and the evals. mesh (parallel/mesh.py::Mesh): every
+    rank calls this with the same arguments, dg on mesh.device (`device`
+    is mesh.device), params sharded here unless they are already;
+    checkpoints, evals and the result as in run_train_device_mega
+    (parallel/train_step.py::MeshRun). Returns a
+    training/loop.py::TrainResult."""
+    run = MeshRun(cfg, schema, mesh, device)
+    dev = run.device
+    params = run.place(params)
     check_placed(dev, "the device graph", dg.edges)
     total_steps = total_steps if total_steps is not None else cfg.max_iter
     burn_in_steps = (burn_in_steps if burn_in_steps is not None
@@ -634,7 +649,8 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
     if neighbor_tables is not None:
         neighbor_tables = neighbor_tables.to(dev)
     step_fn = make_onthefly_train_step(cfg, optimizer, dg,
-                                       neighbor_tables=neighbor_tables)
+                                       neighbor_tables=neighbor_tables,
+                                       mesh=mesh)
     structures = list(STRUCTURES)
     losses: dict[str, list[float]] = {s: [] for s in structures}
     burn_series: list[float] = []
@@ -648,7 +664,7 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
     t0 = time.time()
 
     if resume and ckpt_manager is not None:
-        restored = ckpt_manager.restore_latest(device=dev)
+        restored = run.restore(ckpt_manager)
         if restored is not None:
             state, meta = restored
             params = state["params"]
@@ -688,16 +704,15 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
                 (done - last_ckpt < ckpt_every and not force):
             return
         tc = time.time()
-        ckpt_manager.save_state(
-            done,
-            {"params": params, "opt_state": opt_state,
-             "best_params": best_params},
-            extra={"dispatch_i": dispatch_i, "in_burn": in_burn,
-                   "burn_in_steps": actual_burn_in,
-                   "best_macro": best_macro,
-                   "burn_tail": burn_series[-cfg.conv_window:],
-                   "multi_tail": multi_series[-cfg.conv_window:],
-                   "next_eval": next_eval})
+        run.save(ckpt_manager, done,
+                 {"params": params, "opt_state": opt_state,
+                  "best_params": best_params},
+                 {"dispatch_i": dispatch_i, "in_burn": in_burn,
+                  "burn_in_steps": actual_burn_in,
+                  "best_macro": best_macro,
+                  "burn_tail": burn_series[-cfg.conv_window:],
+                  "multi_tail": multi_series[-cfg.conv_window:],
+                  "next_eval": next_eval})
         t_ckpt += time.time() - tc
         last_ckpt = done
 
@@ -705,8 +720,7 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
         nonlocal val_queries, t_eval
         te = time.time()
         val_queries = resolve_queries(val_queries)
-        macro = eval_auc(cfg, params, schema, val_queries, seed=cfg.seed,
-                         neighbor_tables=neighbor_tables).get("macro", 0.0)
+        macro = run.val_macro(params, val_queries, neighbor_tables)
         t_eval += time.time() - te
         val_history.append((done, macro))
         return macro
@@ -754,8 +768,8 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
         best_params = params
     session_steps = done - start_done
     return TrainResult(
-        params=params,
-        best_params=best_params if best_macro >= 0 else params,
+        params=run.whole(params),
+        best_params=run.whole(best_params if best_macro >= 0 else params),
         best_val_auc=best_macro,
         steps=done,
         burn_in_steps=actual_burn_in,

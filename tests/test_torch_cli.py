@@ -113,12 +113,20 @@ def test_opt_flag(tmp_path, data_dir):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--mesh", "2", "--pipeline", "stream"], "Queue 1 item 11"),
-    (["--mesh", "2", "--pipeline", "device"], "Queue 1 item 11"),
-    (["--mesh", "2", "--pipeline", "onthefly"], "Queue 1 item 11"),
-    (["--mesh", "4", "--pipeline", "host"], "Queue 1 item 11"),
+    (["--mesh", "2", "--pipeline", "stream"],
+     "needs --pipeline device or onthefly"),
+    (["--mesh", "2", "--pipeline", "device", "--bf16"],
+     "requires --storage_dtype float32"),
+    (["--mesh", "3", "--pipeline", "onthefly"],
+     "--mesh 3 must divide --batch_size 512"),
+    (["--mesh", "4", "--pipeline", "host"],
+     "needs --pipeline device or onthefly"),
 ])
 def test_unported_options_exit_naming_their_roadmap_item(tmp_path, flags, item):
+    """--mesh N > 1 follows the JAX CLI's rules and messages: the device or
+    onthefly pipeline, float32 storage, N dividing the batch; a refused run
+    writes nothing. (The mesh runs themselves:
+    tests/test_torch_sharded_trainer.py.)"""
     with pytest.raises(SystemExit, match=item):
         main(["--synthetic", "--cpu", "--model_dir", str(tmp_path), *flags])
     assert not (tmp_path / "config.json").exists()

@@ -405,16 +405,19 @@ def test_mega_step_matches_sequential_calls(graph, multitask_data):
 
 
 def test_mega_step_refuses_what_is_not_ported(multitask_data):
-    """The mesh is not ported (Queue 1 item 11). The SAGE encoder is: at
-    depth 1 the mega-step runs with its neighbor tables (one round over
-    every structure, finite losses and parameters) and refuses to run
-    without them; at depth 0 tables are not read, as in JAX."""
+    """A mesh refuses bfloat16 storage, as in JAX (the mesh runs:
+    tests/test_torch_sharded_trainer.py). The SAGE encoder: at depth 1 the
+    mega-step runs with its neighbor tables (one round over every
+    structure, finite losses and parameters) and refuses to run without
+    them; at depth 0 tables are not read, as in JAX."""
     from graphqembed_tpu_torch.models.encoders import NeighborTables
 
     cfg = GQEConfig(**CFG)
     opt = tdd.FusedAdamOpt(cfg.lr)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tdd.make_multitask_mega_step(cfg, opt, multitask_data, mesh=object())
+    with pytest.raises(ValueError, match="float32"):
+        tdd.make_multitask_mega_step(
+            dataclasses.replace(cfg, storage_dtype="bfloat16"), opt,
+            multitask_data, mesh=object())
     tdd.make_multitask_mega_step(cfg, opt, multitask_data,
                                  neighbor_tables=object())
     deep = dataclasses.replace(cfg, depth=1)
@@ -648,17 +651,18 @@ def test_run_train_device_mega_deferred_val_queries(mega_graph):
 
 
 def test_run_train_device_mega_refuses_what_is_not_ported(mega_graph):
-    """The mesh is not ported (item 11); depth 1 without neighbor tables is
-    refused (the SAGE encoder reads them), and with them the driver runs,
-    evaluating with them."""
+    """A mesh refuses bfloat16 storage, as in JAX; depth 1 without neighbor
+    tables is refused (the SAGE encoder reads them), and with them the
+    driver runs, evaluating with them."""
     from graphqembed_tpu_torch.models.encoders import NeighborTables
 
     cfg = GQEConfig(embed_dim=16)
     data = _mega_data(mega_graph, (("1p", 20),), 1)
     params = _mega_params(cfg, mega_graph, 0)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tdd.run_train_device_mega(cfg, mega_graph.schema, params, data,
-                                  mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        tdd.run_train_device_mega(
+            dataclasses.replace(cfg, storage_dtype="bfloat16"),
+            mega_graph.schema, params, data, mesh=object(), device="cpu")
     deep = GQEConfig(embed_dim=16, depth=1, batch_size=16, val_every=20,
                      tol=0.0, conv_window=10**6)
     params = _mega_params(deep, mega_graph, 0)

@@ -414,8 +414,12 @@ def test_onthefly_step_refuses_what_is_not_ported(graphs, dgs):
     _, tdg = dgs["conftest"]
     cfg = GQEConfig(embed_dim=16, batch_size=32)
     opt = tdd.default_optimizer(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        tds.make_onthefly_train_step(cfg, opt, tdg, mesh=object())
+    # a mesh refuses bfloat16 storage, as in JAX (the mesh runs:
+    # tests/test_torch_sharded_trainer.py)
+    with pytest.raises(ValueError, match="float32"):
+        tds.make_onthefly_train_step(
+            dataclasses.replace(cfg, storage_dtype="bfloat16"), opt, tdg,
+            mesh=object())
     # the SAGE encoder: refused without its neighbor tables, run with them
     # (one dispatch, finite); at depth 0 tables are not read, as in JAX
     deep = dataclasses.replace(cfg, depth=1)

@@ -55,6 +55,47 @@ def test_port_and_chip_smoke_import_no_jax():
     assert loaded.strip() == "[]", r.stdout
 
 
+_REFUSE_SITE = r"""
+import importlib.abc, sys
+
+BANNED = ("jax", "jaxlib", "optax", "grain", "graphqembed_tpu")
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError("refused import of " + name)
+        return None
+
+sys.meta_path.insert(0, Refuse())
+"""
+
+_MESH_RUN = r"""
+import sys
+import torch_mesh_workers as workers
+from graphqembed_tpu_torch.parallel import spawn_on_mesh
+
+if __name__ == "__main__":
+    got = spawn_on_mesh(workers.run_cases, 2, {"probe": ("case_import_probe",)},
+                        device="cpu", timeout=120)["probe"]
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "optax", "grain",
+                                           "graphqembed_tpu"))
+    print(got["banned"], loaded, got["jax_refused"], got["count"])
+"""
+
+
+def test_spawned_mesh_ranks_import_no_jax(tmp_path):
+    """A 2-rank gloo run of the sharded step (parallel/) with an import hook
+    refusing JAX and the JAX package in the parent and in every spawned
+    rank (a sitecustomize on PYTHONPATH): it trains, and no process loads
+    them."""
+    (tmp_path / "sitecustomize.py").write_text(_REFUSE_SITE)
+    path = os.pathsep.join([str(tmp_path), REPO, os.path.join(REPO, "tests")])
+    r = _run(["-c", _MESH_RUN], REPO, {"PYTHONPATH": path})
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split() == ["[]", "[]", "True", "3"], r.stdout
+
+
 def test_no_source_file_names_the_jax_package():
     pkg = os.path.join(REPO, "graphqembed_tpu_torch")
     offenders = []
