@@ -62,6 +62,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
              unsharded run's checkpoint against the uninterrupted run; the
              launches equal the unsharded runs', the collectives per step
              counted; ms per step sharded and unsharded
+  tp_scaling tensor parallelism over a ('data', 'model') mesh (parallel/tp.py)
+             and the scaling harness, float32, d=128, B=512: in a child
+             process on an NCCL group of one, the (1, 1) mesh (the TP code
+             path at a model axis of 1) through 4 host steps (2p/3i) and 40
+             scan steps, bit for bit against the 1-D mesh of one rank and
+             against no mesh (losses, leaves, both Adam moments), launches
+             exact, the collectives per step on 'data' and 'model'; ms per
+             scan step of the three; gqe-torch-scaling at its defaults and
+             with --full-protocol (the one-card rows); dryrun_multichip(1);
+             fused_adam_leaf bit for bit and timed at the TP shards' shapes
+             of a model axis of 2 and 4. Across cards: phase_scaling_cards
+             (its own chip call)
   eval       AUC (one negative), hard AUC and APR of the trained parameters
              on held-out queries of the bench graph (500 2p, 500 3i, 200
              each of 2i, ip, pi; fresh seed, training queries dropped;
@@ -230,6 +242,56 @@ def phase_build():
           "built": sorted(info["logs"])})
 
 
+def adam_leaf_exact(shape, rnd, adam_state, lr) -> dict:
+    """Five steps of fused_adam_leaf against fused_adam_leaf_plain, each
+    from the same state: bit for bit (0 ulp) or the check fails. rnd and
+    adam_state draw the inputs (phase_kernels)."""
+    import torch
+
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+
+    q = adam_state(shape)
+    max_abs, max_ulp = 0.0, 0
+    for t in range(1, 6):
+        k = [x.clone() for x in q]
+        g = rnd(shape, 0.1)
+        fa.fused_adam_leaf(k[0], g, k[1], k[2], t, lr)
+        fa.fused_adam_leaf_plain(q[0], g, q[1], q[2], t, lr)
+        torch.cuda.synchronize()
+        for a, b in zip(k, q):
+            max_abs = max(max_abs, float((a - b).abs().max()))
+            max_ulp = max(max_ulp, ulp_diff(a, b))
+    check(max_ulp == 0, f"fused_adam_leaf differs from plain at {shape}: "
+          f"{max_ulp} ulp")
+    return {"shape": list(shape), "max_abs_err": max_abs, "max_ulp": max_ulp}
+
+
+def adam_leaf_timing(dev, shape, rnd, adam_state, lr) -> dict:
+    """Device and call times of fused_adam_leaf, its plain version and
+    torch._fused_adam_ on one float32 leaf, beside the bound (28 bytes and
+    13 operations an element)."""
+    import torch
+
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+
+    (p, mu, nu), g = adam_state(shape), rnd(shape, 0.1)
+    n = p.numel()
+    step = torch.tensor(7.0, device=dev)
+    fns = {
+        "": lambda: fa.fused_adam_leaf(p, g, mu, nu, 7, lr),
+        "plain_": lambda: fa.fused_adam_leaf_plain(p, g, mu, nu, 7, lr),
+        "library_": lambda: torch._fused_adam_(
+            [p], [g], [mu], [nu], [], [step], lr=lr, beta1=0.9,
+            beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+            maximize=False)}
+    b_ms, b_by = bound(28 * n, 13 * n)
+    row = {"numel": n, "bytes": 28 * n, "bound_ms": b_ms, "bound_by": b_by}
+    for k, fn in fns.items():
+        row[k + "ms"] = device_ms(fn)
+        row[k + "call_ms"] = time_ms(fn)
+    return row
+
+
 def phase_kernels(dev, work: dict):
     import torch
 
@@ -251,43 +313,12 @@ def phase_kernels(dev, work: dict):
     # --- fused_adam_leaf: float32 leaves. Tolerance: bit-exact (built with
     # -fmad=false, IEEE sqrt and division, as the plain version's separate
     # PyTorch operations round); checked per step from the same state.
-    leaf_rows = []
-    for shape in ((12, 128, 128), (5, 128, 128), (1_000_003,)):
-        q = adam_state(shape)
-        max_abs, max_ulp = 0.0, 0
-        for t in range(1, 6):
-            k = [x.clone() for x in q]
-            g = rnd(shape, 0.1)
-            fa.fused_adam_leaf(k[0], g, k[1], k[2], t, lr)
-            fa.fused_adam_leaf_plain(q[0], g, q[1], q[2], t, lr)
-            torch.cuda.synchronize()
-            for a, b in zip(k, q):
-                max_abs = max(max_abs, float((a - b).abs().max()))
-                max_ulp = max(max_ulp, ulp_diff(a, b))
-        leaf_rows.append({"shape": list(shape), "max_abs_err": max_abs,
-                          "max_ulp": max_ulp})
-        check(max_ulp == 0, f"fused_adam_leaf differs from plain at {shape}: "
-              f"{max_ulp} ulp")
-
+    leaf_rows = [adam_leaf_exact(shape, rnd, adam_state, lr)
+                 for shape in ((12, 128, 128), (5, 128, 128), (1_000_003,))]
     # timing at the operator-leaf shapes of the main path
-    leaf_ms = {}
-    for name, shape in (("proj/W", (12, 128, 128)), ("inter/pre", (5, 128, 128))):
-        (p, mu, nu), g = adam_state(shape), rnd(shape, 0.1)
-        n = p.numel()
-        step = torch.tensor(7.0, device=dev)
-        fns = {
-            "": lambda: fa.fused_adam_leaf(p, g, mu, nu, 7, lr),
-            "plain_": lambda: fa.fused_adam_leaf_plain(p, g, mu, nu, 7, lr),
-            "library_": lambda: torch._fused_adam_(
-                [p], [g], [mu], [nu], [], [step], lr=lr, beta1=0.9,
-                beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
-                maximize=False)}
-        b_ms, b_by = bound(28 * n, 13 * n)
-        row = {"numel": n, "bytes": 28 * n, "bound_ms": b_ms, "bound_by": b_by}
-        for k, fn in fns.items():
-            row[k + "ms"] = device_ms(fn)
-            row[k + "call_ms"] = time_ms(fn)
-        leaf_ms[name] = row
+    leaf_ms = {name: adam_leaf_timing(dev, shape, rnd, adam_state, lr)
+               for name, shape in (("proj/W", (12, 128, 128)),
+                                   ("inter/pre", (5, 128, 128)))}
     out["fused_adam_leaf"] = {
         "check": leaf_rows, "tolerance": "bit-exact (-fmad=false)",
         "max_abs_err": max(r["max_abs_err"] for r in leaf_rows),
@@ -1455,6 +1486,431 @@ def phase_mesh_cards(n: int = 4) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         out["cli"] = {p: _cli_auto_mesh(n, p, Path(tmp))
                       for p in ("device", "onthefly")}
+    emit(out)
+    return out
+
+
+# The tensor-parallel step and the scaling harness on one card (phase
+# tp_scaling). TP_SCAN: the scan's chunks (structure, steps, use_hard).
+TP_SCAN = [("2p", 10, False), ("3i", 10, True), ("2p", 10, False),
+           ("3i", 10, True)]
+TP_HOST = ("2p", "3i", "2p", "3i")
+# Model-axis collectives of one TP step: a projection hop is one all-gather
+# forward and one all-reduce backward, an intersection one all-reduce each
+# way; the per-formula (host) route projects each relation on its own, the
+# rows (scan) route folds an intersection's parallel first hops into one
+# (tests/test_torch_tp.py derives the same counts on gloo ranks).
+TP_HOPS = {"host": {"1p": 1, "2p": 2, "3p": 3, "2i": 2, "3i": 3, "pi": 3, "ip": 3},
+           "scan": {"1p": 1, "2p": 2, "3p": 3, "2i": 1, "3i": 1, "pi": 2, "ip": 2}}
+DP_STEP = {"all_gather": 1, "reduce_scatter": 1, "all_reduce": 1,
+           "broadcast": 0, "barrier": 0}
+# the JAX TP test's tolerances (tests/test_tp.py) for a TP step against
+# one process
+TP_TOL = {"loss_rtol": 2e-5, "loss_atol": 1e-6, "leaf_rtol": 2e-4,
+          "leaf_atol": 2e-5}
+
+
+def tp_model_counts(route: str, structure: str, steps: int = 1) -> dict:
+    hops = TP_HOPS[route][structure]
+    inter = structure in ("2i", "3i", "pi", "ip")
+    return {"all_gather": steps * hops,
+            "all_reduce": steps * (hops + 2 * inter)}
+
+
+def phase_tp_scaling(dev, card: str) -> dict:
+    """Tensor parallelism over a ('data', 'model') mesh (parallel/tp.py) and
+    the scaling harness (cli/scaling.py, entry.py) on one card:
+    (a) in one child process on an NCCL group of one (spawn_on_mesh),
+        `tp_rank`: the (1, 1) 2-D mesh (the TP code path at a model axis of
+        1) through make_sharded_train_step (4 host batches, 2p/3i) and then
+        make_sharded_scan_train_step (4 chunks of 10 steps), bit for bit
+        against the 1-D mesh of one rank and against no mesh: losses, every
+        leaf, both Adam moments (bench graph, float32, d=128, B=512,
+        bilinear/min); ms per scan step of the three, in turns;
+    (b) launches: fused_adam_leaf once per leaf a step, scatter_rows A + 2
+        times a host step and once a scan step, equal in the three runs;
+        the collectives per step on each axis (TP_HOPS);
+    (c) gqe-torch-scaling at its defaults and with --full-protocol: the
+        one-rank rows (q/s, edges/s, efficiency 1.0);
+    (d) entry.dryrun_multichip(1);
+    (e) fused_adam_leaf bit for bit against its plain version at the TP
+        shards' shapes of a model axis of 2 and 4, timed beside the plain
+        version, torch._fused_adam_ and the bound."""
+    import torch
+
+    from graphqembed_tpu_torch.entry import dryrun_multichip
+    from graphqembed_tpu_torch.parallel import spawn_on_mesh
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"phase": "tp_scaling", "card": card,
+           **spawn_on_mesh(tp_rank, 1, device="cuda", timeout=600)}
+    out["tp_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["scaling"] = scaling_rows(1)
+    out["scaling_s"] = time.perf_counter() - t1
+    out["dryrun"] = dryrun_multichip(1)
+    out["narrow_adam"] = check_narrow_adam(dev)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+def scaling_rows(n_cards: int) -> dict:
+    """gqe-torch-scaling at its defaults and with --full-protocol, run in
+    this process (each size spawns its ranks): {mode: [one row per mesh
+    size 1, 2, 4, ... up to n_cards]}, each row checked (sizes, positive
+    rates, efficiency 1.0 at one card and JAX's formula elsewhere)."""
+    import contextlib
+    import io
+
+    from graphqembed_tpu_torch.cli import scaling
+
+    sizes = [k for k in scaling.SIZES if k <= n_cards]
+    out = {}
+    for mode, argv in (("scan", []), ("full_protocol", ["--full-protocol"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = scaling.main(argv)
+        print(buf.getvalue(), end="", flush=True)
+        rows = [json.loads(x) for x in buf.getvalue().splitlines()
+                if x.startswith("{")]
+        check(rc == 0 and [r["devices"] for r in rows] == sizes,
+              f"gqe-torch-scaling {argv}: rc {rc}, rows {rows}, want sizes "
+              f"{sizes}")
+        base = rows[0]["edges_per_sec"]
+        for r in rows:
+            check(r["queries_per_sec"] > 0 and r["edges_per_sec"] > 0
+                  and r["efficiency_vs_1dev"] == round(
+                      r["edges_per_sec"] / (base * r["devices"]), 3),
+                  f"gqe-torch-scaling {argv}: {r}")
+        out[mode] = rows
+    return out
+
+
+def _tp_run(cfg, base, mesh, batches, pools, dev, chunks=TP_SCAN) -> dict:
+    """The host steps over `batches`, then the scan over `chunks`
+    (structure, steps, use_hard), from a copy of `base`, on `mesh` (None:
+    no mesh): losses, final state, launches and collectives per step."""
+    import torch
+
+    from graphqembed_tpu_torch.models.params import tree_map
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.parallel import (
+        make_sharded_scan_train_step,
+        make_sharded_train_step,
+    )
+    from graphqembed_tpu_torch.training.device_data import (
+        FusedAdamOpt,
+        derived_generator,
+        make_scan_train_step,
+    )
+    from graphqembed_tpu_torch.training.loop import make_train_step, structure_weight
+
+    params = tree_map(lambda x: x.detach().clone().requires_grad_(), base)
+    opt = FusedAdamOpt(cfg.lr)
+    if mesh is None:
+        step, scan = make_train_step(cfg, opt), make_scan_train_step(cfg, opt)
+    else:
+        params = pm.shard_params(params, mesh)
+        step = make_sharded_train_step(cfg, opt, mesh, params)
+        scan = make_sharded_scan_train_step(cfg, opt, mesh)
+    state = opt.init(params)
+    losses, colls = [], {"host": [], "scan": []}
+    reset_counts()
+    for s, *b in batches:
+        pm.reset_collective_counts()
+        params, state, loss = step(params, state, s, *b, structure_weight(cfg, s))
+        colls["host"].append((pm.collective_counts(), pm.collective_counts("model")))
+        losses.append(loss)
+    torch.cuda.synchronize()
+    launches = {"host": read_counts()}
+    reset_counts()
+    for i, (s, n, hard) in enumerate(chunks):
+        pm.reset_collective_counts()
+        params, state, ml = scan(params, state, pools[s], s,
+                                 derived_generator(dev, 3, i), n,
+                                 structure_weight(cfg, s), hard)
+        colls["scan"].append((pm.collective_counts(), pm.collective_counts("model")))
+        losses.append(ml)
+    torch.cuda.synchronize()
+    launches["scan"] = read_counts()
+    return {"losses": torch.stack(losses), "params": params, "state": state,
+            "launches": launches, "collectives": colls, "scan": scan}
+
+
+def _scan_ms(run: dict, pools, cfg, dev) -> float:
+    """ms per step of TP_SCAN's chunks on the run's scan and state
+    (host clock around work ending in a synchronize)."""
+    import torch
+
+    from graphqembed_tpu_torch.training.device_data import derived_generator
+    from graphqembed_tpu_torch.training.loop import structure_weight
+
+    params, state = run["params"], run["state"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (s, n, hard) in enumerate(TP_SCAN):
+        params, state, _ = run["scan"](params, state, pools[s], s,
+                                       derived_generator(dev, 4, i), n,
+                                       structure_weight(cfg, s), hard)
+    torch.cuda.synchronize()
+    run["params"], run["state"] = params, state
+    return 1e3 * (time.perf_counter() - t0) / sum(n for _, n, _ in TP_SCAN)
+
+
+def tp_rank(mesh) -> dict:
+    """The child of phase_tp_scaling: rank 0 of a one-rank NCCL world,
+    holding the 1-D mesh it was given and the (1, 1) mesh."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from graphqembed_tpu_torch.config import GQEConfig
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+    from graphqembed_tpu_torch.models.params import init_params, tree_leaves
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.parallel.tp import model_parallel
+    from graphqembed_tpu_torch.training.device_data import DeviceTrainData
+    from graphqembed_tpu_torch.training.loop import TrainData
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(mesh.size == 1 and dist.get_backend(mesh.group) == "nccl",
+          f"mesh {mesh}")
+    m11 = pm.make_mesh_2d(1, 1)
+    tp = model_parallel(m11)
+    check(m11.axis_names == ("data", "model") and tp is not None
+          and tp.size == 1, f"(1, 1) mesh {m11}")
+    dev = mesh.device
+    graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    cfg = GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
+                    batch_size=512, lr=0.01)
+    sampler = QuerySampler(graph, np.random.default_rng(0), max_negs=30)
+    queries = sampler.sample_many("2p", 1500) + sampler.sample_many("3i", 1500)
+    host = TrainData(graph.schema, queries, cfg.batch_size, seed=1)
+    batches = [(s,) + tuple(host.sample_batch(s)) for s in TP_HOST]
+    pools = DeviceTrainData(graph.schema, queries).pools
+    base = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+    n_leaves = len(tree_leaves(base))
+    runs = {name: _tp_run(cfg, base, m, batches, pools, dev)
+            for name, m in (("unsharded", None), ("mesh_1d", mesh),
+                            ("mesh_11", m11))}
+    u = runs["unsharded"]
+    host_steps = sum(n for _, n, _ in TP_SCAN)
+    # A + 2 take_rows a host step (anchors, target, negative); one a scan step
+    host_gathers = sum({"2p": 3, "3i": 5}[s] for s in TP_HOST)
+    for name in ("mesh_1d", "mesh_11"):
+        r = runs[name]
+        _equal_trees(r["losses"], u["losses"], f"{name} losses")
+        _equal_trees(r["params"], u["params"], f"{name} params")
+        _equal_trees(r["state"], u["state"], f"{name} Adam state")
+        check(r["launches"] == u["launches"],
+              f"{name} launches {r['launches']} != unsharded {u['launches']}")
+    check(u["launches"]["host"] == want_counts(
+        fused_adam_leaf=n_leaves * len(TP_HOST), scatter_rows=host_gathers),
+        f"host launches {u['launches']['host']}")
+    check(u["launches"]["scan"] == want_counts(
+        fused_adam_leaf=n_leaves * host_steps, scatter_rows=host_steps),
+        f"scan launches {u['launches']['scan']}")
+    for name, model_on in (("mesh_1d", False), ("mesh_11", True)):
+        got = runs[name]["collectives"]
+        for route, structures in (("host", [(s, 1) for s in TP_HOST]),
+                                  ("scan", [(s, n) for s, n, _ in TP_SCAN])):
+            for (s, n), (data_axis, model_axis) in zip(structures, got[route]):
+                want_model = (tp_model_counts(route, s, n) if model_on
+                              else {"all_gather": 0, "all_reduce": 0})
+                check(data_axis == {k: n * v for k, v in DP_STEP.items()}
+                      and model_axis == want_model,
+                      f"{name} {route} {s}: collectives {data_axis} "
+                      f"{model_axis}, want {want_model} on 'model'")
+    ms = {name: [] for name in runs}
+    for name in ("unsharded", "mesh_1d", "mesh_11", "mesh_11", "mesh_1d",
+                 "unsharded"):
+        ms[name].append(_scan_ms(runs[name], pools, cfg, dev))
+    return {"backend": "nccl", "torch": torch.__version__,
+            "losses": [float(v) for v in u["losses"]], "bit_for_bit": True,
+            "launches": runs["mesh_11"]["launches"],
+            "collectives_mesh_11": runs["mesh_11"]["collectives"],
+            "scan_ms_per_step": ms}
+
+
+# the TP shards' shapes of the bench model (R = 12 relations, I = 5
+# intersection modes, d = 128) at a model axis of 2 and 4
+NARROW_SHARDS = {f"{leaf} M={m}": shape(m)
+                 for m in (2, 4)
+                 for leaf, shape in (
+                     ("proj/W", lambda m: (12, 128, 128 // m)),
+                     ("inter/pre", lambda m: (5, 128, 128 // m)),
+                     ("inter/post", lambda m: (5, 128 // m, 128)))}
+
+
+def check_narrow_adam(dev) -> dict:
+    """fused_adam_leaf at NARROW_SHARDS: bit for bit against its plain
+    version over five steps, then timed (adam_leaf_exact,
+    adam_leaf_timing)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(12)
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def adam_state(shape):
+        return [rnd(shape), rnd(shape, 0.01), rnd(shape, 1e-3).abs()]
+
+    out = {}
+    for name, shape in NARROW_SHARDS.items():
+        out[name] = {**adam_leaf_exact(shape, rnd, adam_state, 0.01),
+                     **adam_leaf_timing(dev, shape, rnd, adam_state, 0.01)}
+    return out
+
+
+def _whole_params(params, mesh, n_rows: int) -> dict:
+    """Whole, unpadded leaves of a rank's parameters: copies on the CPU
+    (the steps that follow update the parameters in place)."""
+    from graphqembed_tpu_torch.models.params import tree_paths
+    from graphqembed_tpu_torch.parallel import mesh as pm
+
+    if mesh is not None:
+        params = pm.unshard_tree(pm.unshard_model(params, mesh), mesh, n_rows)
+    return {p: x.detach().to("cpu", copy=True) for p, x in tree_paths(params)}
+
+
+def _tp_cards_runs(mesh, dev) -> dict:
+    """The TP comparison of phase_scaling_cards on this process's meshes
+    (mesh None: one process), on `dev`: per mesh, 3 host steps (2i, 3p,
+    2i) from the same parameters (their losses and whole leaves), then ms
+    per scan step over TP_SCAN's chunks after a warm-up pass, with rank 0's
+    launches and collectives in that timed pass."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.config import GQEConfig
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.training.device_data import DeviceTrainData
+    from graphqembed_tpu_torch.training.loop import TrainData
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if mesh is None:
+        meshes = {"one": None}
+    else:   # every rank makes the 2-D meshes' groups, in one order
+        n = mesh.size
+        meshes = {f"1d_{n}": mesh, f"{n // 2}x2": pm.make_mesh_2d(n // 2, 2),
+                  f"1x{n}": pm.make_mesh_2d(1, n)}
+    graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    cfg = GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
+                    batch_size=512, lr=0.01)
+    s = QuerySampler(graph, np.random.default_rng(1), max_negs=20)
+    host = TrainData(graph.schema, s.sample_many("2i", 600)
+                     + s.sample_many("3p", 600), cfg.batch_size, seed=1)
+    batches = [(st,) + tuple(host.sample_batch(st)) for st in ("2i", "3p", "2i")]
+    bench = QuerySampler(graph, np.random.default_rng(0), max_negs=30)
+    pools = DeviceTrainData(graph.schema, bench.sample_many("2p", 1500)
+                            + bench.sample_many("3i", 1500), device=dev).pools
+    base = init_params(cfg, graph.schema, torch.Generator().manual_seed(0),
+                       device=dev)
+    out = {}
+    for name, m in meshes.items():
+        run = _tp_run(cfg, base, m, batches, pools, dev, chunks=())
+        r = {"losses": [float(v) for v in run["losses"]],
+             "params": _whole_params(run["params"], m, graph.schema.n_nodes),
+             "launches_host": run["launches"]["host"],
+             "collectives_host": run["collectives"]["host"]}
+        _scan_ms(run, pools, cfg, dev)        # warm-up pass
+        if m is not None:
+            pm.barrier(m)
+        reset_counts()
+        pm.reset_collective_counts()
+        r["ms_per_step"] = _scan_ms(run, pools, cfg, dev)
+        r["launches_scan"] = read_counts()
+        r["collectives_scan"] = (pm.collective_counts(),
+                                 pm.collective_counts("model"))
+        out[name] = r
+    return out
+
+
+def tp_cards_rank(mesh) -> dict:
+    """One rank of phase_scaling_cards's TP comparison."""
+    return _tp_cards_runs(mesh, mesh.device)
+
+
+def _close_tp(r: dict, one: dict, name: str) -> dict:
+    """A mesh's 3 host steps against one process's: losses and every leaf
+    within TP_TOL; rank 0's launches and collectives exact."""
+    import numpy as np
+
+    t = TP_TOL
+    a, b = np.asarray(r["losses"]), np.asarray(one["losses"])
+    loss_excess = float(np.max(np.abs(a - b) - (t["loss_atol"] + t["loss_rtol"] * np.abs(b))))
+    check(loss_excess <= 0, f"TP {name}: losses {a} against {b}")
+    leaf_diff = {}
+    for path, x in one["params"].items():
+        y = r["params"][path]
+        check(y.shape == x.shape, f"TP {name} {path}: {tuple(y.shape)} {tuple(x.shape)}")
+        excess = float(((y - x).abs() - (t["leaf_atol"] + t["leaf_rtol"] * x.abs())).max())
+        check(excess <= 0, f"TP {name} {path}: beyond {t} by {excess}")
+        leaf_diff[path] = float((y - x).abs().max())
+    n_leaves = len(one["params"])
+    steps = sum(n for _, n, _ in TP_SCAN)
+    check(r["launches_host"] == one["launches_host"]
+          and r["launches_scan"] == want_counts(fused_adam_leaf=n_leaves * steps,
+                                                scatter_rows=steps),
+          f"TP {name}: launches {r['launches_host']} {r['launches_scan']}")
+    tp_on = not name.startswith("1d")
+    want_model = {"all_gather": 0, "all_reduce": 0}
+    for s, n, _ in TP_SCAN:
+        if tp_on:
+            want_model = {k: want_model[k] + v
+                          for k, v in tp_model_counts("scan", s, n).items()}
+    want = ({k: steps * v for k, v in DP_STEP.items()}, want_model)
+    check(tuple(r["collectives_scan"]) == want,
+          f"TP {name}: scan collectives {r['collectives_scan']}, want {want}")
+    return {"losses": r["losses"], "losses_one": one["losses"],
+            "max_abs_leaf_diff": leaf_diff, "ms_per_step": r["ms_per_step"],
+            "ms_per_step_one": one["ms_per_step"],
+            "launches_scan_rank0": r["launches_scan"],
+            "collectives_scan_rank0": r["collectives_scan"]}
+
+
+def phase_scaling_cards(n: int = 4) -> dict:
+    """Scaling and tensor parallelism across n cards of this host (NCCL,
+    rank r on cuda:r), run as its own chip call: `python3 -c "import
+    chip_smoke as c; c.phase_build(); c.phase_scaling_cards(4)"`.
+    (a) gqe-torch-scaling at its defaults and with --full-protocol over
+        1, 2, ... n cards (`scaling_rows`);
+    (b) the TP step on (n/2, 2) and (1, n) meshes and the 1-D mesh of n
+        ranks (`tp_cards_rank`, one spawn) against one process on cuda:0:
+        3 host steps (2i, 3p, 2i; bench graph, float32, d=128, B=512,
+        bilinear/min) within TP_TOL (tests/test_tp.py's tolerances), every
+        leaf gathered whole; then ms per scan step of each beside one
+        process's, rank 0's launches and collectives exact;
+    (c) entry.dryrun_multichip(n).
+    Prints one JSON line and returns it."""
+    import torch
+
+    from graphqembed_tpu_torch.entry import dryrun_multichip
+    from graphqembed_tpu_torch.parallel import spawn_on_mesh
+
+    check(torch.cuda.device_count() >= n,
+          f"{n} cards wanted, {torch.cuda.device_count()} visible")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_name_and_power()
+    t0 = time.perf_counter()
+    out = {"phase": "scaling_cards", "card": card, "cards": n,
+           "tolerance": TP_TOL, "scaling": scaling_rows(n)}
+    out["scaling_s"] = time.perf_counter() - t0
+    meshed = spawn_on_mesh(tp_cards_rank, n, device="cuda", timeout=900)
+    one = _tp_cards_runs(None, torch.device("cuda", 0))["one"]
+    out["tp"] = {name: _close_tp(r, one, name) for name, r in meshed.items()}
+    out["dryrun"] = dryrun_multichip(n)
+    out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
 
@@ -3088,6 +3544,7 @@ def main(argv):
     phase_train_sparse(dev, card, work)
     phase_multitask(dev, card, work)
     mesh = phase_mesh(card)
+    tp = phase_tp_scaling(dev, card)
     eval_launches = phase_eval(trained, card)
     protocol, onthefly, deep, stream, protocol_data = protocol_phases(
         dev, card, work, "--profile" in argv)
@@ -3148,6 +3605,14 @@ def main(argv):
                 "onthefly": mesh["onthefly"]["sharded"]["launches"][name]}
 
     kernels[0]["launches_mesh"] = mesh_launches("fused_adam_leaf")
+    # phase tp_scaling: the (1, 1) mesh's host steps and scan, and the
+    # kernel at the TP shards' shapes of a model axis of 2 and 4
+    kernels[0]["launches_tp"] = {k: v["fused_adam_leaf"]
+                                 for k, v in tp["launches"].items()}
+    kernels[0]["tp_shards"] = {
+        name: {k: r[k] for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                                 "library_ms", "bound_ms", "bound_by")}
+        for name, r in tp["narrow_adam"].items()}
     rows_k = kern["fused_adam_table_sorted_rows_sr"]
     rows_t = rows_k["timing"]["bench_3i_batch"]
     kernels.append(
@@ -3172,6 +3637,7 @@ def main(argv):
          "launches_deep": deep_launches["scatter_rows"],
          "launches_stream": stream_launches("scatter_rows"),
          "launches_mesh": mesh_launches("scatter_rows"),
+         "launches_tp": {k: v["scatter_rows"] for k, v in tp["launches"].items()},
          **oracle_keys("scatter_rows"),
          "max_abs_err": sc["max_abs_err"],
          "ms": sc_t["ms"], "plain_ms": sc_t["plain_ms"],

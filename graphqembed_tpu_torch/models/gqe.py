@@ -26,6 +26,22 @@ rels [B, R] and inter_modes [B] per row, and each row's operator is selected
 from the stacked parameters. `structure` is a plain Python string, so each
 structure runs its own straight-line code.
 
+Tensor parallelism: the per-formula route (`project`, `intersect`,
+`embed_query`, `margin_loss`) and the rows route (`project_rows`,
+`project_rows_stacked`, `intersect_rows_stacked`, `embed_query_folded`,
+`margin_loss_rows_onegather`) take `tp` (parallel/tp.py::TensorParallel;
+None by default, and then every line runs as without it), with the
+operator stacks split over the model ranks as parallel/mesh.py::
+param_shardings places them. A projection is column-parallel: copy-to-model
+on its input, the product with this rank's columns of W (for transe and
+distmult, the add or multiply on this rank's columns of x), then
+gather-from-model, since the next hop and the scoring need whole features.
+The intersection's pre-transform is column-parallel with no gather: relu
+and min or mean act on this rank's feature slice (`torch.amin`'s even
+split between tied branches is per element, so it holds per slice); the
+post-transform is row-parallel, the local [B, d/M] @ [d/M, d] product
+summed by reduce-from-model. No operator leaf is ever gathered whole.
+
 Matmul precision follows cfg.compute_dtype: "float32" runs the operator
 products in full float32 (TF32 must be off, see `set_matmul_precision`);
 "bfloat16" casts their inputs to bfloat16, accumulates in float32 inside
@@ -86,29 +102,57 @@ def _batch_const(M: torch.Tensor, i) -> torch.Tensor:
     return M[int(i)]
 
 
+def _cols(x: torch.Tensor, tp) -> torch.Tensor:
+    """x, or under tensor parallelism this rank's block of its features."""
+    return x if tp is None else tp.columns(x)
+
+
+def _column_parallel(tp, x: torch.Tensor, local) -> torch.Tensor:
+    """local(x): without tp the whole product; with tp this rank's output
+    columns of it, from copy-to-model's x, made whole by gather-from-model."""
+    if tp is None:
+        return local(x)
+    return tp.gather(local(tp.copy(x)))
+
+
+def _row_parallel(tp, partial: torch.Tensor) -> torch.Tensor:
+    """The post-transform's product: whole, or with tp this rank's partial
+    sums added over the model ranks (reduce-from-model)."""
+    return partial if tp is None else tp.reduce(partial)
+
+
 def project(cfg: GQEConfig, params: Params, x: torch.Tensor,
-            rel_id) -> torch.Tensor:
+            rel_id, tp=None) -> torch.Tensor:
     """Apply P_rel to x [B, d]; rel_id is a batch constant."""
     p = params["proj"]
-    if cfg.projection == "transe":
-        return x + _batch_const(p["r"], rel_id)
-    if cfg.projection == "distmult":
-        return x * _batch_const(p["w"], rel_id)
-    return _einsum(cfg, "bd,de->be", x, _batch_const(p["W"], rel_id))
+
+    def local(x):
+        if cfg.projection == "transe":
+            return _cols(x, tp) + _batch_const(p["r"], rel_id)
+        if cfg.projection == "distmult":
+            return _cols(x, tp) * _batch_const(p["w"], rel_id)
+        return _einsum(cfg, "bd,de->be", x, _batch_const(p["W"], rel_id))
+
+    return _column_parallel(tp, x, local)
 
 
 def intersect(cfg: GQEConfig, params: Params, zs: list[torch.Tensor],
-              mode_id) -> torch.Tensor:
+              mode_id, tp=None) -> torch.Tensor:
     """Deep-set intersection of branch embeddings zs (each [B, d]) at one
     batch-constant mode. cfg.use_pallas takes the fused CUDA kernel, which
-    computes in float32 and has no gradient."""
+    computes in float32 and has no gradient (and no tensor-parallel form)."""
     if cfg.use_pallas and cfg.learned_intersection:
+        if tp is not None:
+            raise ValueError("use_pallas's fused intersection takes whole "
+                             "operators; it has no tensor-parallel form")
         return fused_intersection(torch.stack(zs),
                                   _batch_const(params["inter"]["pre"], mode_id),
                                   _batch_const(params["inter"]["post"], mode_id),
                                   kind=cfg.intersection)
     if cfg.learned_intersection:
         pre = _batch_const(params["inter"]["pre"], mode_id)
+        if tp is not None:   # one copy-to-model for all branches
+            zs = tp.copy(torch.stack(zs)).unbind(0)
         hs = [torch.relu(_einsum(cfg, "bd,de->be", z, pre)) for z in zs]
     else:
         hs = zs
@@ -117,7 +161,7 @@ def intersect(cfg: GQEConfig, params: Params, zs: list[torch.Tensor],
            else stacked.mean(dim=0))
     if cfg.learned_intersection:
         post = _batch_const(params["inter"]["post"], mode_id)
-        return _einsum(cfg, "bd,de->be", agg, post)
+        return _row_parallel(tp, _einsum(cfg, "bd,de->be", agg, post))
     return agg
 
 
@@ -128,17 +172,17 @@ def _encoder(params: Params, encode_fn):
 
 def embed_query(cfg: GQEConfig, params: Params, structure: str,
                 anchors: torch.Tensor, rels, inter_mode_id,
-                encode_fn=None) -> torch.Tensor:
+                encode_fn=None, tp=None) -> torch.Tensor:
     """Query embedding [B, d] for one formula batch.
 
     anchors [B, A]; rels a sequence of R batch-constant relation ids
     (application order); inter_mode_id a batch constant (−1 for chains,
     ignored). encode_fn encodes the anchors (None: the direct encoder),
-    one call per anchor column, as in JAX."""
+    one call per anchor column, as in JAX. tp: see the module docstring."""
     enc = _encoder(params, encode_fn)
     e = lambda i: enc(anchors[:, i])  # noqa: E731
-    P = lambda x, r: project(cfg, params, x, r)  # noqa: E731
-    I = lambda zs: intersect(cfg, params, zs, inter_mode_id)  # noqa: E731,E741
+    P = lambda x, r: project(cfg, params, x, r, tp)  # noqa: E731
+    I = lambda zs: intersect(cfg, params, zs, inter_mode_id, tp)  # noqa: E731,E741
     if structure == "1p":
         return P(e(0), rels[0])
     if structure == "2p":
@@ -234,6 +278,13 @@ def soft_and_margin_loss(cfg: GQEConfig, params: Params, structure: str,
 # ---------- per-row variants (mixed-formula batches) ----------
 
 
+def _whole_width(M: torch.Tensor) -> int:
+    """d of a stack of [d, d] operators: the larger of its two operator
+    dims, so a tensor-parallel shard ([d, d/M] or [d/M, d]) takes the
+    route its whole stack would."""
+    return max(M.shape[-2:])
+
+
 def _gathered_matmul(cfg: GQEConfig, x: torch.Tensor, ids: torch.Tensor,
                      M: torch.Tensor) -> torch.Tensor:
     """y[b] = x[b] @ M[ids[b]] for a stack of small operators M [R, d, e].
@@ -242,7 +293,7 @@ def _gathered_matmul(cfg: GQEConfig, x: torch.Tensor, ids: torch.Tensor,
     each row's result is selected (`select_dim`): the backward is two plain
     products instead of a [B, d, e] scatter-add. For a large stack (R > d)
     the per-row gather is cheaper."""
-    if M.shape[0] <= x.shape[-1]:
+    if M.shape[0] <= _whole_width(M):
         return select_dim(_einsum(cfg, "bd,rde->bre", x, M), ids)
     return _einsum(cfg, "bd,bde->be", x, M[ids])
 
@@ -251,58 +302,66 @@ def _gathered_matmul_stacked(cfg: GQEConfig, x: torch.Tensor,
                              ids: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
     """y[b,k] = x[b,k] @ M[ids[b,k]] for x [B,K,d], ids [B,K]: the K branches
     of an intersection folded into one product and one select."""
-    if M.shape[0] <= x.shape[-1]:
+    if M.shape[0] <= _whole_width(M):
         return select_dim(_einsum(cfg, "bkd,rde->bkre", x, M), ids)
     return _einsum(cfg, "bkd,bkde->bke", x, M[ids])
 
 
-def project_rows(cfg: GQEConfig, params: Params, x: torch.Tensor,
-                 rel_ids: torch.Tensor) -> torch.Tensor:
-    """x [B, d]; rel_ids [B] -> [B, d] with per-row relation parameters."""
+def _project_rows(cfg: GQEConfig, params: Params, x: torch.Tensor,
+                  rel_ids: torch.Tensor, matmul, tp) -> torch.Tensor:
     p = params["proj"]
-    if cfg.projection == "transe":
-        return x + p["r"][rel_ids]
-    if cfg.projection == "distmult":
-        return x * p["w"][rel_ids]
-    return _gathered_matmul(cfg, x, rel_ids, p["W"])
+
+    def local(x):
+        if cfg.projection == "transe":
+            return _cols(x, tp) + p["r"][rel_ids]
+        if cfg.projection == "distmult":
+            return _cols(x, tp) * p["w"][rel_ids]
+        return matmul(cfg, x, rel_ids, p["W"])
+
+    return _column_parallel(tp, x, local)
+
+
+def project_rows(cfg: GQEConfig, params: Params, x: torch.Tensor,
+                 rel_ids: torch.Tensor, tp=None) -> torch.Tensor:
+    """x [B, d]; rel_ids [B] -> [B, d] with per-row relation parameters."""
+    return _project_rows(cfg, params, x, rel_ids, _gathered_matmul, tp)
 
 
 def project_rows_stacked(cfg: GQEConfig, params: Params, x: torch.Tensor,
-                         rel_ids: torch.Tensor) -> torch.Tensor:
+                         rel_ids: torch.Tensor, tp=None) -> torch.Tensor:
     """x [B, K, d]; rel_ids [B, K] -> [B, K, d]."""
-    p = params["proj"]
-    if cfg.projection == "transe":
-        return x + p["r"][rel_ids]
-    if cfg.projection == "distmult":
-        return x * p["w"][rel_ids]
-    return _gathered_matmul_stacked(cfg, x, rel_ids, p["W"])
+    return _project_rows(cfg, params, x, rel_ids, _gathered_matmul_stacked,
+                         tp)
 
 
 def intersect_rows_stacked(cfg: GQEConfig, params: Params, z: torch.Tensor,
-                           mode_ids: torch.Tensor) -> torch.Tensor:
+                           mode_ids: torch.Tensor, tp=None) -> torch.Tensor:
     """z [B, K, d]; mode_ids [B] -> [B, d]: deep-set intersection with the
     per-branch pre-transform folded into one gathered matmul. `torch.amin`
     splits the gradient evenly between tied branches, as `jnp.min` does."""
     if cfg.learned_intersection:
         ids = mode_ids[:, None].expand(z.shape[:2])
+        if tp is not None:
+            z = tp.copy(z)
         h = torch.relu(_gathered_matmul_stacked(cfg, z, ids,
                                                 params["inter"]["pre"]))
     else:
         h = z
     agg = torch.amin(h, dim=1) if cfg.intersection == "min" else h.mean(dim=1)
     if cfg.learned_intersection:
-        return _gathered_matmul(cfg, agg, mode_ids, params["inter"]["post"])
+        return _row_parallel(tp, _gathered_matmul(cfg, agg, mode_ids,
+                                                  params["inter"]["post"]))
     return agg
 
 
 def embed_query_folded(cfg: GQEConfig, params: Params, structure: str,
                        E: torch.Tensor, rels: torch.Tensor,
-                       inter_modes: torch.Tensor) -> torch.Tensor:
+                       inter_modes: torch.Tensor, tp=None) -> torch.Tensor:
     """Query embedding [B, d] from encoded anchors E [B, A, d], rels [B, R],
     inter_modes [B], with parallel branch hops folded into the batch."""
-    P = lambda x, i: project_rows(cfg, params, x, rels[:, i])  # noqa: E731
-    Ps = lambda x, ids: project_rows_stacked(cfg, params, x, ids)  # noqa: E731
-    I = lambda z: intersect_rows_stacked(cfg, params, z, inter_modes)  # noqa: E731,E741
+    P = lambda x, i: project_rows(cfg, params, x, rels[:, i], tp)  # noqa: E731
+    Ps = lambda x, ids: project_rows_stacked(cfg, params, x, ids, tp)  # noqa: E731
+    I = lambda z: intersect_rows_stacked(cfg, params, z, inter_modes, tp)  # noqa: E731,E741
     e = lambda i: E[:, i]  # noqa: E731
     if structure == "1p":
         return P(e(0), 0)
@@ -383,7 +442,8 @@ def margin_loss_rows_onegather(cfg: GQEConfig, params: Params, structure: str,
                                inter_modes: torch.Tensor,
                                targets: torch.Tensor, negs: torch.Tensor,
                                row_mask: torch.Tensor,
-                               encode_fn=None, denom=None) -> torch.Tensor:
+                               encode_fn=None, denom=None,
+                               tp=None) -> torch.Tensor:
     """Margin loss with ONE encoder call for anchors, target and negative:
     under the direct encoder one table gather, so the backward builds a
     single dense table gradient; under encode_fn (the SAGE encoder) one
@@ -398,7 +458,7 @@ def margin_loss_rows_onegather(cfg: GQEConfig, params: Params, structure: str,
     else:
         normed = encode_fn(ids).float()
     q = embed_query_folded(cfg, params, structure, normed[:, :a], rels,
-                           inter_modes)
+                           inter_modes, tp)
     pn = score(q, normed[:, a:], cfg.scoring)
     return _masked_margin(cfg, pn[:, 0], pn[:, 1], row_mask, denom)
 
@@ -433,12 +493,13 @@ def margin_loss(cfg: GQEConfig, params: Params, structure: str,
                 anchors: torch.Tensor, rels, inter_mode_id,
                 targets: torch.Tensor, negs: torch.Tensor,
                 row_mask: torch.Tensor, encode_fn=None,
-                denom=None) -> torch.Tensor:
+                denom=None, tp=None) -> torch.Tensor:
     """Mean max-margin loss over valid rows of one formula batch; negs [B]
-    (one per query). denom: see _masked_margin."""
+    (one per query). denom: see _masked_margin; tp: see the module
+    docstring."""
     enc = _encoder(params, encode_fn)
     q = embed_query(cfg, params, structure, anchors, rels, inter_mode_id,
-                    encode_fn)
+                    encode_fn, tp)
     pos = score(q, enc(targets), cfg.scoring)
     neg = score(q, enc(negs), cfg.scoring)
     return _masked_margin(cfg, pos, neg, row_mask, denom)

@@ -1,6 +1,8 @@
-"""The data-parallel mesh: one process per rank in a `torch.distributed`
-process group, the batch split over the ranks and the packed embedding
-table row-sharded over the same axis, 'data'.
+"""The mesh: one process per rank in a `torch.distributed` process group,
+the batch split over the ranks and the packed embedding table row-sharded
+over the same axis, 'data'; on a 2-D ('data', 'model') mesh
+(`make_mesh_2d`) the operator stacks are also split over 'model' (tensor
+parallelism, parallel/tp.py).
 
 The JAX package (its `parallel/mesh.py`) has one process own every device
 and places arrays with `NamedSharding`; GSPMD then inserts the collectives.
@@ -10,17 +12,21 @@ itself, on detached tensors, outside autograd. NCCL on cards (rank r on
 `cuda:r`), gloo on the CPU.
 
 - `Sharding` describes a placement, as `NamedSharding` does: `("data",
-  None)` is rows over 'data', `()` replicated (`table_sharding`,
-  `replicated`, `batch_sharding`, `param_shardings`);
+  None)` is rows over 'data', `()` replicated, `(None, None, "model")`
+  the last dim over 'model' (`table_sharding`, `replicated`,
+  `batch_sharding`, `param_shardings`);
 - `pad_table_rows`, `shard_params`, `gather_table`, `shard_tree` /
-  `unshard_tree` (checkpoints hold whole, unpadded arrays), and
-  `mesh_consistent` place parameters and state;
+  `unshard_tree` (checkpoints hold whole, unpadded arrays),
+  `unshard_model` (TP leaves made whole) and `mesh_consistent` place
+  parameters and state;
 - `spawn_on_mesh(fn, n, *args)` starts n ranks on this host and returns
   rank 0's result: the launcher that stands for JAX's one process owning
   n devices.
 
-Every collective adds one to its count in COLLECTIVES
-(`reset_collective_counts`, `collective_counts`).
+Every collective adds one to its count in COLLECTIVES under its axis
+(`reset_collective_counts`, `collective_counts(axis)`): 'data' counts the
+data group's collectives and the whole mesh's broadcasts and barriers (on
+a 1-D mesh one and the same group), 'model' the model group's.
 """
 
 from __future__ import annotations
@@ -40,29 +46,59 @@ from graphqembed_tpu_torch.models.params import tree_paths
 
 AXIS = "data"
 
-COLLECTIVES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
-               "broadcast": 0, "barrier": 0}
+MODEL = "model"
+
+COLLECTIVES = {AXIS: {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
+                      "broadcast": 0, "barrier": 0},
+               MODEL: {"all_gather": 0, "all_reduce": 0}}
 
 
 def reset_collective_counts() -> None:
-    for k in COLLECTIVES:
-        COLLECTIVES[k] = 0
+    for counts in COLLECTIVES.values():
+        for k in counts:
+            counts[k] = 0
 
 
-def collective_counts() -> dict:
-    return dict(COLLECTIVES)
+def collective_counts(axis: str = AXIS) -> dict:
+    return dict(COLLECTIVES[axis])
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D data-parallel mesh: the process group (None: the default
-    group), this process's rank and the group's size, and the rank's
-    device."""
+    """A mesh of ranks: the whole mesh's process group (None: the default
+    group), this process's rank in it and its size, and the rank's device.
+
+    A 1-D mesh (`make_mesh`, or `Mesh(group, rank, size, device)`) has the
+    one axis 'data', whose group is the whole group. A 2-D mesh
+    (`make_mesh_2d`) has axes ('data', 'model') of sizes `shape`; rank r
+    sits at `coords` (r // n_model, r % n_model), as JAX reshapes its
+    devices, and holds its model column's 'data' group and its data row's
+    'model' group."""
     group: object
     rank: int
     size: int
     device: torch.device
     axis: str = AXIS
+    axis_names: tuple = ()
+    shape: tuple = ()
+    coords: tuple = ()
+    data_group: object = None
+    model_group: object = None
+
+    def __post_init__(self):
+        if not self.axis_names:   # 1-D: the whole group is the data group
+            for k, v in (("axis_names", (self.axis,)), ("shape", (self.size,)),
+                         ("coords", (self.rank,)),
+                         ("data_group", self.group)):
+                object.__setattr__(self, k, v)
+
+    @property
+    def n_data(self) -> int:
+        return self.shape[0]
+
+    @property
+    def data_index(self) -> int:
+        return self.coords[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +107,16 @@ class Sharding:
     is split over (None: whole), as a JAX PartitionSpec; () replicated."""
     mesh: Mesh
     spec: tuple
+
+
+def _rank_device(device, rank: int) -> torch.device:
+    """device None means this rank's card (`cuda:<rank>`, made the current
+    device), and raises without one; "cpu" for gloo ranks."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if dev.index is None else dev.index)
+        torch.cuda.set_device(dev)
+    return dev
 
 
 def make_mesh(n: int | None = None, device=None) -> Mesh | None:
@@ -90,11 +136,39 @@ def make_mesh(n: int | None = None, device=None) -> Mesh | None:
     group = None if n == world else dist.new_group(list(range(n)))
     if rank >= n:
         return None
-    dev = resolve_device(device)
-    if dev.type == "cuda":
-        dev = torch.device("cuda", rank if dev.index is None else dev.index)
-        torch.cuda.set_device(dev)
-    return Mesh(group, rank, n, dev)
+    return Mesh(group, rank, n, _rank_device(device, rank))
+
+
+def make_mesh_2d(n_data: int, n_model: int, device=None) -> Mesh | None:
+    """A ('data', 'model') mesh over the first n_data·n_model ranks of the
+    initialized default group (JAX's make_mesh_2d): rank r at data index
+    r // n_model and model index r % n_model. Its 'model' groups are the
+    data rows, its 'data' groups the model columns. device as make_mesh.
+    Every rank of the default group must call it: it makes every group
+    (new_group is collective, so every rank makes each one, in one order);
+    a rank outside the mesh gets None."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh_2d needs an initialized process group "
+                           "(spawn_on_mesh starts one)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = n_data * n_model
+    if n_data < 1 or n_model < 1 or n > world:
+        raise ValueError(f"a ({n_data}, {n_model}) mesh in a group of {world}")
+
+    def group(ranks):
+        return None if ranks == list(range(world)) else dist.new_group(ranks)
+
+    whole = group(list(range(n)))
+    rows = [group([i * n_model + j for j in range(n_model)])
+            for i in range(n_data)]
+    cols = [group([i * n_model + j for i in range(n_data)])
+            for j in range(n_model)]
+    if rank >= n:
+        return None
+    i, j = divmod(rank, n_model)
+    return Mesh(whole, rank, n, _rank_device(device, rank),
+                axis_names=(AXIS, MODEL), shape=(n_data, n_model),
+                coords=(i, j), data_group=cols[j], model_group=rows[i])
 
 
 def table_sharding(mesh: Mesh) -> Sharding:
@@ -123,12 +197,49 @@ def _unflatten(pairs) -> dict:
     return out
 
 
+# the leaves JAX splits over 'model' (its mesh.py:55-98): the projection
+# stacks and the intersection pre-transform over their last (output) dim,
+# the post-transform over its dim 1 (its contraction dim)
+_COLUMN_SPLIT = {("proj", "W"), ("proj", "r"), ("proj", "w"), ("inter", "pre")}
+
+
+def model_dim(path: str, ndim: int) -> int | None:
+    """The dim a leaf is split over on a mesh with a 'model' axis, or None
+    (replicated)."""
+    key = tuple(path.split("/")[:2])
+    if key in _COLUMN_SPLIT:
+        return ndim - 1
+    if key == ("inter", "post"):
+        return 1
+    return None
+
+
 def param_shardings(params: dict, mesh: Mesh) -> dict:
     """"table" rows over 'data'; every other leaf (the operators, the
-    encoder: R·d² and M·d² floats) replicated."""
-    return _unflatten(
-        (p, table_sharding(mesh) if p == "table" else replicated(mesh))
-        for p, _ in tree_paths(params))
+    encoder: R·d² and M·d² floats) replicated on a 1-D mesh. On a mesh
+    with a 'model' axis the operator stacks are tensor-parallel as JAX
+    places them: `proj/W`, `proj/r`, `proj/w` and `inter/pre` split over
+    their last dim, `inter/post` over dim 1, everything else (the depth > 0
+    encoder included) replicated; a split dim that the model axis does not
+    divide raises JAX's ValueError."""
+    tp = MODEL in mesh.axis_names
+
+    def spec(path, x):
+        if path == "table":
+            return table_sharding(mesh)
+        dim = model_dim(path, x.dim()) if tp else None
+        if dim is None:
+            return replicated(mesh)
+        n_model = mesh.shape[1]
+        if x.shape[dim] % n_model:
+            raise ValueError(
+                f"param {path} dim {dim} (= {x.shape[dim]}) is not divisible "
+                f"by the 'model' mesh axis ({n_model}); pick embed_dim a "
+                f"multiple of n_model or a smaller model axis")
+        return Sharding(mesh, tuple(MODEL if k == dim else None
+                                    for k in range(x.dim())))
+
+    return _unflatten((p, spec(p, x)) for p, x in tree_paths(params))
 
 
 def pad_table_rows(params: dict, n_shards: int) -> tuple[dict, int]:
@@ -152,24 +263,37 @@ def shard_rows(n_rows: int, size: int) -> int:
 
 def _own_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This rank's rows of a whole (unpadded or padded) table, a
-    contiguous copy on mesh.device."""
+    contiguous copy on mesh.device: data shard i of the table padded to a
+    multiple of the whole mesh's size (JAX pads to mesh.devices.size)."""
     padded, _ = pad_table_rows({"table": x.detach()}, mesh.size)
-    per = padded["table"].shape[0] // mesh.size
-    return (padded["table"][mesh.rank * per:(mesh.rank + 1) * per]
+    per = padded["table"].shape[0] // mesh.n_data
+    i = mesh.data_index
+    return (padded["table"][i * per:(i + 1) * per]
             .to(mesh.device, copy=True).requires_grad_(x.requires_grad))
 
 
+def _model_block(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of a whole leaf along its 'model' dim, as a
+    contiguous tensor of its own (the fused Adam kernel takes no view)."""
+    return t.chunk(mesh.shape[1], dim)[mesh.coords[1]].contiguous()
+
+
 def shard_params(params: dict, mesh: Mesh) -> dict:
-    """The rank's parameters, placed as param_shardings says: its rows
-    [r·N_pad/W, (r+1)·N_pad/W) of the padded table, and every replicated
-    leaf as rank 0 holds it (broadcast), so the ranks start equal bit for
-    bit. New tensors on mesh.device; the caller's are not touched."""
+    """The rank's parameters, placed as param_shardings says: data shard i
+    of the table padded to a multiple of the mesh's size (rows
+    [i·N_pad/D, (i+1)·N_pad/D) for D ranks over 'data'), every other leaf as
+    rank 0 holds it (broadcast), so the ranks start equal bit for bit, and
+    of a leaf split over 'model' block j of it on rank (i, j). New tensors
+    on mesh.device; the caller's are not touched."""
     specs = dict(tree_paths(param_shardings(params, mesh)))
 
     def place(path, x):
-        if specs[path].spec[:1] == (mesh.axis,):
+        spec = specs[path].spec
+        if spec[:1] == (mesh.axis,):
             return _own_rows(x, mesh)
         t = broadcast(x.detach().to(mesh.device, copy=True), mesh)
+        if MODEL in spec:
+            t = _model_block(t, spec.index(MODEL), mesh)
         return t.requires_grad_(x.requires_grad)
 
     return _unflatten((p, place(p, x)) for p, x in tree_paths(params))
@@ -179,12 +303,12 @@ def is_sharded(params: dict, mesh: Mesh, n_rows: int) -> bool:
     """Whether params["table"] is a shard of an n_rows table on `mesh`
     placed on its device (at one rank the whole table is its shard)."""
     t = params["table"]
-    return (t.shape[0] == shard_rows(n_rows, mesh.size)
-            and t.device == mesh.device)
+    per = shard_rows(n_rows, mesh.size) * mesh.size // mesh.n_data
+    return t.shape[0] == per and t.device == mesh.device
 
 
-def _collective(name: str, fn, *args, **kw):
-    COLLECTIVES[name] += 1
+def _collective(name: str, fn, *args, axis: str = AXIS, **kw):
+    COLLECTIVES[axis][name] += 1
     return fn(*args, **kw)
 
 
@@ -197,29 +321,48 @@ _reduce_scatter = (getattr(dist, "reduce_scatter_single", None)
 
 def gather_table(shard: torch.Tensor, mesh: Mesh,
                  n_rows: int | None = None) -> torch.Tensor:
-    """The whole [N_pad, d] table on every rank (all-gather of the shards,
-    rank order), sliced to its first n_rows rows when given. A new
-    tensor, outside autograd."""
+    """The whole [N_pad, d] table on every rank (all-gather of the shards
+    over 'data', in data order), sliced to its first n_rows rows when
+    given. A new tensor, outside autograd."""
     shard = shard.detach().contiguous()
-    out = shard.new_empty((shard.shape[0] * mesh.size,) + tuple(shard.shape[1:]))
-    _collective("all_gather", _all_gather, out, shard, group=mesh.group)
+    out = shard.new_empty((shard.shape[0] * mesh.n_data,)
+                          + tuple(shard.shape[1:]))
+    _collective("all_gather", _all_gather, out, shard, group=mesh.data_group)
     return out if n_rows is None else out[:n_rows]
 
 
 def reduce_scatter_rows(full: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """This rank's rows of the sum over ranks of a whole [N_pad, d] tensor
-    (a table gradient)."""
+    """This rank's rows of the sum over 'data' of a whole [N_pad, d]
+    tensor (a table gradient)."""
     full = full.contiguous()
-    out = full.new_empty((full.shape[0] // mesh.size,) + tuple(full.shape[1:]))
+    out = full.new_empty((full.shape[0] // mesh.n_data,)
+                         + tuple(full.shape[1:]))
     _collective("reduce_scatter", _reduce_scatter, out, full,
-                op=dist.ReduceOp.SUM, group=mesh.group)
+                op=dist.ReduceOp.SUM, group=mesh.data_group)
     return out
 
 
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Sum `t` over the ranks, in place."""
+    """Sum `t` over 'data', in place."""
     _collective("all_reduce", dist.all_reduce, t, op=dist.ReduceOp.SUM,
-                group=mesh.group)
+                group=mesh.data_group)
+    return t
+
+
+def all_gather_model(t: torch.Tensor, group, size: int) -> torch.Tensor:
+    """[size, *t.shape]: every model rank's `t` of this rank's data row
+    (its model group of `size` ranks), in model order; a new tensor,
+    outside autograd."""
+    t = t.detach().contiguous()
+    out = t.new_empty((size * t.shape[0],) + tuple(t.shape[1:]))
+    _collective("all_gather", _all_gather, out, t, group=group, axis=MODEL)
+    return out.view((size,) + tuple(t.shape))
+
+
+def all_reduce_model(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum `t` over this rank's data row (its model group), in place."""
+    _collective("all_reduce", dist.all_reduce, t, op=dist.ReduceOp.SUM,
+                group=group, axis=MODEL)
     return t
 
 
@@ -261,6 +404,25 @@ def unshard_tree(tree, mesh: Mesh, n_rows: int):
             t.requires_grad)
 
     return _map_tables(whole, tree)
+
+
+def unshard_model(tree: dict, mesh: Mesh) -> dict:
+    """A params-shaped tree (parameters, or Adam's mu or nu) with every
+    leaf that is split over 'model' gathered whole from the model ranks of
+    this rank's data row (the table stays this rank's shard; see
+    unshard_tree). A new tree outside autograd; on a 1-D mesh the tree
+    itself. A collective: every rank calls it."""
+    if MODEL not in mesh.axis_names:
+        return tree
+
+    def whole(path, x):
+        dim = model_dim(path, x.dim())
+        if dim is None:
+            return x
+        parts = all_gather_model(x, mesh.model_group, mesh.shape[1])
+        return torch.cat(parts.unbind(0), dim=dim)
+
+    return _unflatten((p, whole(p, x)) for p, x in tree_paths(tree))
 
 
 def shard_tree(tree, mesh: Mesh):

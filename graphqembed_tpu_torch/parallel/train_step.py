@@ -24,6 +24,16 @@ and `sharded_body`, which every mesh path calls:
 
 Three collectives a step. At W = 1 each is a copy, and the step is the
 unsharded step bit for bit. Float32 storage only, as in JAX.
+
+On a 2-D ('data', 'model') mesh (parallel/mesh.py::make_mesh_2d) the same
+step runs with W the 'data' axis: the three collectives go over the rank's
+data group (its model column), the batch splits over 'data' only (the
+model ranks of a data row train the same rows and compute the same table
+gradient), and the model is tensor-parallel over the rank's model group
+(parallel/tp.py, models/gqe.py's `tp`): each rank holds its own block of
+`proj/*` and `inter/*`, and the flat all-reduce carries its blocks'
+gradients beside the replicated leaves' and the loss, summed over 'data'.
+The optimizer keeps the blocks' moments in the blocks' shapes.
 """
 
 from __future__ import annotations
@@ -36,33 +46,36 @@ from graphqembed_tpu_torch.models import gqe
 from graphqembed_tpu_torch.models.encoders import deep_tables, make_deep_encoder
 from graphqembed_tpu_torch.models.params import tree_paths
 from graphqembed_tpu_torch.parallel.mesh import (
+    MODEL,
     Mesh,
     all_reduce_sum,
     gather_table,
     reduce_scatter_rows,
 )
+from graphqembed_tpu_torch.parallel.tp import model_parallel
 
 
 def check_mesh_config(cfg: GQEConfig, mesh: Mesh) -> None:
-    """A mesh trains float32 storage (the JAX package's rule), and its size
-    divides the batch."""
+    """A mesh trains float32 storage (the JAX package's rule), and its
+    'data' axis divides the batch."""
     if cfg.storage_dtype != "float32":
         raise ValueError(
             "mesh training requires storage_dtype=float32 (the "
             "stochastic-rounding bfloat16 optimizer is single-device, as in "
             f"JAX); got storage_dtype={cfg.storage_dtype}")
-    if cfg.batch_size % mesh.size:
-        raise ValueError(f"a mesh of {mesh.size} ranks must divide the batch "
-                         f"size {cfg.batch_size} (DP splits the batch axis)")
+    if cfg.batch_size % mesh.n_data:
+        raise ValueError(f"a mesh of {mesh.n_data} ranks over 'data' must "
+                         f"divide the batch size {cfg.batch_size} (DP splits "
+                         f"the batch axis)")
 
 
 def batch_rows(mesh: Mesh, b: int) -> slice:
-    """This rank's rows of a B-row batch."""
-    if b % mesh.size:
-        raise ValueError(f"a mesh of {mesh.size} ranks must divide the batch "
-                         f"of {b} rows")
-    per = b // mesh.size
-    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+    """This rank's rows of a B-row batch (its data index's share)."""
+    if b % mesh.n_data:
+        raise ValueError(f"a mesh of {mesh.n_data} ranks over 'data' must "
+                         f"divide the batch of {b} rows")
+    per = b // mesh.n_data
+    return slice(mesh.data_index * per, (mesh.data_index + 1) * per)
 
 
 def dp_step(mesh: Mesh, optimizer, params: dict, opt_state, loss_fn):
@@ -100,6 +113,7 @@ def sharded_body(cfg: GQEConfig, optimizer, mesh: Mesh, structure: str,
     (a dict of [B, ...] tensors, with an optional row "mask"), of which
     this rank trains its rows. `tables` placed on the batch's device."""
     tables = deep_tables(cfg, tables)
+    tp = model_parallel(mesh)
 
     def body(carry, batch):
         params, opt_state = carry
@@ -120,7 +134,7 @@ def sharded_body(cfg: GQEConfig, optimizer, mesh: Mesh, structure: str,
                 cfg, view, structure, batch["anchors"][rows],
                 batch["rels"][rows], batch["inter_modes"][rows],
                 batch["targets"][rows], batch["negs"][rows], mask[rows],
-                encode_fn=encode_fn, denom=denom)
+                encode_fn=encode_fn, denom=denom, tp=tp)
 
         params, opt_state, loss = dp_step(mesh, optimizer, params, opt_state,
                                           loss_fn)
@@ -144,7 +158,8 @@ def make_sharded_train_step(cfg: GQEConfig, optimizer, mesh: Mesh,
     batch (numpy arrays, the same on every rank), of which this rank
     trains its rows. params are this rank's (parallel/mesh.py::
     shard_params; params_like is checked to be such a tree); loss is the
-    whole batch's, a 0-d tensor on mesh.device."""
+    whole batch's, a 0-d tensor on mesh.device. mesh is 1-D or 2-D (then
+    the model is tensor-parallel over 'model', see the module docstring)."""
     from graphqembed_tpu_torch.training.device_data import (
         _check_storage_optimizer,
     )
@@ -156,6 +171,7 @@ def make_sharded_train_step(cfg: GQEConfig, optimizer, mesh: Mesh,
     if tables is not None:
         tables = tables.to(mesh.device)
     gqe.set_matmul_precision(cfg)
+    tp = model_parallel(mesh)
 
     def step(params, opt_state, structure, rels, anchors, targets, negs,
              row_mask, inter_mode_id, weight):
@@ -176,7 +192,7 @@ def make_sharded_train_step(cfg: GQEConfig, optimizer, mesh: Mesh,
                 cfg, view, structure, on(anchors)[rows],
                 [int(r) for r in rels], int(inter_mode_id),
                 on(targets)[rows], on(negs)[rows], mask[rows],
-                encode_fn=encode_fn, denom=denom)
+                encode_fn=encode_fn, denom=denom, tp=tp)
 
         return dp_step(mesh, optimizer, params, opt_state, loss_fn)
 
@@ -189,8 +205,9 @@ def make_sharded_scan_train_step(cfg: GQEConfig, optimizer, mesh: Mesh,
     run(params, opt_state, pool, structure, generator, n_steps, weight,
     use_hard) -> (params, opt_state, mean_loss). Every rank draws the same
     [T, B] batches from the same generator (`_select_batches`; the pools
-    are whole on every rank) and trains its B/W rows of each. params are
-    this rank's; mean_loss is the whole batches', a 0-d tensor."""
+    are whole on every rank) and trains its B/W rows of each (W the 'data'
+    axis of a 1-D or 2-D mesh). params are this rank's; mean_loss is the
+    whole batches', a 0-d tensor."""
     from graphqembed_tpu_torch.training.device_data import (
         _check_storage_optimizer,
         _scan,
@@ -235,13 +252,19 @@ class MeshRun:
 
     def __init__(self, cfg: GQEConfig, schema, mesh: Mesh | None, device):
         """device: the run's device (None means the card); on a mesh it is
-        mesh.device."""
+        mesh.device, a 1-D mesh (parallel/mesh.py::make_mesh)."""
         from graphqembed_tpu_torch.device import resolve_device
 
         self.cfg, self.schema, self.mesh = cfg, schema, mesh
         self.n_rows = schema.n_nodes
         if mesh is not None:
             check_mesh_config(cfg, mesh)
+            if MODEL in mesh.axis_names:
+                raise ValueError(
+                    "the protocol drivers take a 1-D 'data' mesh (make_mesh); "
+                    f"a {mesh.axis_names} mesh of shape {mesh.shape} trains "
+                    "through make_sharded_train_step or "
+                    "make_sharded_scan_train_step")
             self.device = mesh.device
         else:
             self.device = resolve_device(device)

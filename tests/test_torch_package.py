@@ -96,6 +96,40 @@ def test_spawned_mesh_ranks_import_no_jax(tmp_path):
     assert r.stdout.split() == ["[]", "[]", "True", "3"], r.stdout
 
 
+_TP_RUN = r"""
+import sys
+from graphqembed_tpu_torch.cli import scaling
+from graphqembed_tpu_torch.entry import dryrun_multichip, entry
+from graphqembed_tpu_torch.parallel import tp  # noqa: F401
+
+if __name__ == "__main__":
+    entry(device="cpu")
+    got = dryrun_multichip(4, device="cpu", timeout=120)
+    scaling.main(["--cpu", "--ranks", "2", "--scale", "0.3", "--batch_size",
+                  "32", "--embed_dim", "16", "--n_queries", "40", "--steps",
+                  "4"])
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "optax", "grain",
+                                           "graphqembed_tpu"))
+    print("RESULT", loaded, got["tp"]["shape"])
+"""
+
+
+def test_tp_scaling_and_entry_import_no_jax(tmp_path):
+    """The modules of the tensor-parallel slice (parallel/tp.py,
+    cli/scaling.py, entry.py) under the refusing import hook in the parent
+    and in every spawned rank: dryrun_multichip(4) with its (2, 2) TP step
+    and gqe-torch-scaling on 2 gloo ranks run, and no process loads JAX or
+    the JAX package."""
+    (tmp_path / "sitecustomize.py").write_text(_REFUSE_SITE)
+    path = os.pathsep.join([str(tmp_path), REPO])
+    r = _run(["-c", _TP_RUN], REPO, {"PYTHONPATH": path})
+    assert r.returncode == 0, r.stderr
+    result = [line for line in r.stdout.splitlines()
+              if line.startswith("RESULT")]
+    assert result == ["RESULT [] (2, 2)"], r.stdout
+
+
 def test_no_source_file_names_the_jax_package():
     pkg = os.path.join(REPO, "graphqembed_tpu_torch")
     offenders = []

@@ -1,5 +1,6 @@
 """Rank functions for the mesh tests (tests/test_torch_mesh.py,
-tests/test_torch_sharded_trainer.py, tests/test_torch_package.py): each runs
+tests/test_torch_sharded_trainer.py, tests/test_torch_tp.py,
+tests/test_torch_package.py): each runs
 on every rank of a gloo mesh started by
 graphqembed_tpu_torch.parallel.spawn_on_mesh, and rank 0's result comes
 back to the test. Spawned ranks import this module by name, so it imports
@@ -287,3 +288,194 @@ def case_onthefly_protocol(mesh) -> dict:
             "table_rows": res.params["table"].shape[0],
             "best_rows": res.best_params["table"].shape[0]}
 
+
+
+# ---------- tests/test_torch_tp.py ----------
+
+
+def _mesh_2d(mesh, shape):
+    """The (n_data, n_model) mesh over the first ranks of this world; every
+    rank makes its groups, and a rank outside gets None."""
+    return pm.make_mesh_2d(*shape, device="cpu")
+
+
+def _tp_state(opt_state, mesh):
+    """Adam's (mu, nu) with their TP blocks gathered whole and their tables
+    gathered and cut to the graph's rows."""
+    mu, nu, _ = opt_state
+    n = small_graph().schema.n_nodes
+    return [numpy_tree(pm.unshard_tree(pm.unshard_model(m, mesh), mesh, n))
+            for m in (mu, nu)]
+
+
+def case_tp_shard(mesh, np_params: dict, shape: tuple) -> dict | None:
+    """shard_params on a 2-D mesh: each leaf's shard shape and spec, each
+    TP block bit for bit the rank's block of the whole leaf, and
+    unshard_model giving the whole leaves back."""
+    m = _mesh_2d(mesh, shape)
+    params = params_from_jax(np_params, device="cpu")
+    sp = pm.shard_params(params, m) if m is not None else None
+    whole = pm.unshard_model(sp, m) if m is not None else None
+    if m is None:
+        return None
+    specs = {p: s.spec for p, s in tree_paths(pm.param_shardings(params, m))}
+    j = m.coords[1]
+    blocks = {}
+    for p, x in tree_paths(sp):
+        if p == "table":
+            continue
+        full = torch.from_numpy(np_params[p.split("/")[0]][p.split("/")[1]])
+        if "model" in specs[p]:
+            full = full.chunk(shape[1], specs[p].index("model"))[j]
+        blocks[p] = bool(torch.equal(x.detach(), full)) and x.is_contiguous()
+    return {"coords": m.coords, "shapes": {p: tuple(x.shape)
+                                          for p, x in tree_paths(sp)},
+            "specs": specs, "blocks_equal": blocks,
+            "whole_equal": all(torch.equal(x.detach(), torch.from_numpy(
+                np_params[p.split("/")[0]][p.split("/")[1]]))
+                for p, x in tree_paths(whole) if p != "table")}
+
+
+def case_tp_step(mesh, cfg_kw: dict, np_params: dict, batches: list,
+                 shape: tuple) -> dict | None:
+    """make_sharded_train_step on a 2-D mesh over host batches: the losses,
+    the collectives per step on each axis, the shapes of the leaves and of
+    Adam's moments, and the whole leaves."""
+    m = _mesh_2d(mesh, shape)
+    if m is None:
+        return None
+    cfg = GQEConfig(**cfg_kw)
+    opt = tdd.FusedAdamOpt(cfg.lr)
+    sp = pm.shard_params(params_from_jax(np_params, device="cpu"), m)
+    state = opt.init(sp)
+    step = make_sharded_train_step(cfg, opt, m, sp)
+    losses, colls = [], []
+    for structure, rels, anchors, targets, negs, row_mask, im in batches:
+        pm.reset_collective_counts()
+        sp, state, loss = step(sp, state, structure, rels, anchors, targets,
+                               negs, row_mask, im, 1.0)
+        colls.append((pm.collective_counts(), pm.collective_counts("model")))
+        losses.append(float(loss))
+    shapes = {p: tuple(x.shape) for p, x in tree_paths(sp)}
+    moment_shapes = {p: tuple(x.shape) for p, x in tree_paths(state[0])}
+    whole = pm.unshard_tree(pm.unshard_model(sp, m), m,
+                            np_params["table"].shape[0])
+    return {"losses": losses, "collectives": colls, "shapes": shapes,
+            "moment_shapes": moment_shapes, "count": state[2],
+            "params": numpy_tree(whole)}
+
+
+def case_tp_scan(mesh, cfg_kw: dict, np_params: dict, data_seed: int,
+                 counts: dict, schedule: list, shape: tuple) -> dict | None:
+    """make_sharded_scan_train_step on a 2-D mesh over `schedule`: the mean
+    losses and the whole leaves."""
+    m = _mesh_2d(mesh, shape)
+    if m is None:
+        return None
+    cfg = GQEConfig(**cfg_kw)
+    graph = small_graph()
+    data = pool_data(graph, data_seed, counts)
+    opt = tdd.FusedAdamOpt(cfg.lr)
+    sp = pm.shard_params(params_from_jax(np_params, device="cpu"), m)
+    state = opt.init(sp)
+    scan = make_sharded_scan_train_step(cfg, opt, m)
+    losses = []
+    for structure, gseed, n_steps, use_hard in schedule:
+        sp, state, ml = scan(sp, state, data.pools[structure], structure,
+                             tdd.derived_generator("cpu", gseed), n_steps, 1.0,
+                             use_hard)
+        losses.append(float(ml))
+    whole = pm.unshard_tree(pm.unshard_model(sp, m), m, graph.schema.n_nodes)
+    return {"losses": losses, "params": numpy_tree(whole)}
+
+
+def _bit_runs(mesh_of, cfg, np_params, batches, data, schedule) -> dict:
+    """The host steps over `batches`, then the scan over `schedule`, from
+    the same parameters, with mesh_of[name] (None: no mesh): {name:
+    (losses, leaves, Adam's moments)}."""
+    from graphqembed_tpu_torch.training.loop import make_train_step
+
+    out = {}
+    for name, m in mesh_of.items():
+        opt = tdd.FusedAdamOpt(cfg.lr)
+        p = params_from_jax(np_params, device="cpu")
+        if m is None:
+            step = make_train_step(cfg, opt)
+            scan = tdd.make_scan_train_step(cfg, opt)
+        else:
+            p = pm.shard_params(p, m)
+            step = make_sharded_train_step(cfg, opt, m, p)
+            scan = make_sharded_scan_train_step(cfg, opt, m)
+        state = opt.init(p)
+        losses = []
+        for structure, *b in batches:
+            p, state, loss = step(p, state, structure, *b, 1.0)
+            losses.append(loss.detach())
+        for structure, gseed, n_steps, use_hard in schedule:
+            p, state, ml = scan(p, state, data.pools[structure], structure,
+                                tdd.derived_generator("cpu", gseed), n_steps,
+                                1.0, use_hard)
+            losses.append(ml.detach())
+        out[name] = (torch.stack(losses), numpy_tree(p),
+                     [numpy_tree(x) for x in state[:2]])
+    return out
+
+
+def case_tp_bit(mesh, cfg_kw: dict, np_params: dict, batches: list,
+                data_seed: int, counts: dict, schedule: list) -> dict | None:
+    """The (1, 1) mesh's host steps and scan against the 1-D mesh of one
+    rank and no mesh: losses, leaves and both Adam moments bit for bit."""
+    one = pm.make_mesh(1, device="cpu")
+    m11 = _mesh_2d(mesh, (1, 1))
+    if m11 is None:
+        return None
+    cfg = GQEConfig(**cfg_kw)
+    data = pool_data(small_graph(), data_seed, counts)
+    runs = _bit_runs({"none": None, "mesh_1d": one, "mesh_11": m11}, cfg,
+                     np_params, batches, data, schedule)
+
+    def equal(a, b):
+        return (bool(torch.equal(a[0], b[0]))
+                and all(np.array_equal(a[1][k], b[1][k]) for k in a[1])
+                and all(np.array_equal(x[k], y[k])
+                        for x, y in zip(a[2], b[2]) for k in x))
+
+    from graphqembed_tpu_torch.parallel.tp import model_parallel
+
+    tp = model_parallel(m11)
+    return {"tp_of_model_1": tp is not None and tp.size == 1,
+            "mesh_11_vs_none": equal(runs["mesh_11"], runs["none"]),
+            "mesh_11_vs_1d": equal(runs["mesh_11"], runs["mesh_1d"]),
+            "losses": runs["none"][0].tolist()}
+
+
+def case_tp_counts(mesh, cfg_kw: dict, np_params: dict, shape: tuple,
+                   structures: list) -> dict | None:
+    """One host step and one scan step of each structure on a 2-D mesh:
+    {route: {structure: (data-axis counts, model-axis counts)}}."""
+    m = _mesh_2d(mesh, shape)
+    if m is None:
+        return None
+    from graphqembed_tpu_torch.training.loop import TrainData
+
+    cfg = GQEConfig(**cfg_kw)
+    graph = small_graph()
+    s = QuerySampler(graph, np.random.default_rng(3), max_negs=10)
+    queries = [q for st in structures for q in s.sample_many(st, 40)]
+    host = TrainData(graph.schema, queries, cfg.batch_size, seed=2)
+    pools = tdd.DeviceTrainData(graph.schema, queries, device="cpu").pools
+    opt = tdd.FusedAdamOpt(cfg.lr)
+    sp = pm.shard_params(params_from_jax(np_params, device="cpu"), m)
+    state = opt.init(sp)
+    step = make_sharded_train_step(cfg, opt, m, sp)
+    scan = make_sharded_scan_train_step(cfg, opt, m)
+    out = {"host": {}, "scan": {}}
+    for st in structures:
+        pm.reset_collective_counts()
+        sp, state, _ = step(sp, state, st, *host.sample_batch(st), 1.0)
+        out["host"][st] = (pm.collective_counts(), pm.collective_counts("model"))
+        pm.reset_collective_counts()
+        sp, state, _ = scan(sp, state, pools[st], st,
+                            tdd.derived_generator("cpu", 5), 1, 1.0, False)
+        out["scan"][st] = (pm.collective_counts(), pm.collective_counts("model"))
+    return out
