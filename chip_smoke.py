@@ -62,6 +62,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              unsharded run's checkpoint against the uninterrupted run; the
              launches equal the unsharded runs', the collectives per step
              counted; ms per step sharded and unsharded
+  owner_gather
+             the owner-compute slice (parallel/gather.py, halo.py, deep.py)
+             in phase mesh's child, one NCCL rank, bench graph, depth 1,
+             mean, float32, d=128, B=512: sharded_gather bit for bit against
+             take_rows (rows and gradient; a 3i batch's 2,560 ids and 81,920
+             seeded ids), one halo hop against expand_hop_reference;
+             make_sharded_deep_train_step against the unsharded deep step
+             over 50 batches (2p/3i), losses, leaves and both Adam moments
+             bit for bit; launches (fused_adam_leaf 7, scatter_rows 2) and
+             collectives (8 all-to-alls, 1 all-reduce) per step exact;
+             scatter_rows on the step's own inputs and fused_adam_leaf at
+             its table shard against their plain versions, timed; ms per
+             step beside the unsharded step and sharded_body's deep step
+             (whole-table gather). Across cards: phase_owner_cards (its own
+             chip call; also four processes started by initialize_multihost)
   tp_scaling tensor parallelism over a ('data', 'model') mesh (parallel/tp.py)
              and the scaling harness, float32, d=128, B=512: in a child
              process on an NCCL group of one, the (1, 1) mesh (the TP code
@@ -985,7 +1000,7 @@ MESH = {"total_steps": 600, "burn_in_steps": 100, "steps_per": 20}
 MESH_EVERY = 200
 
 
-def phase_mesh(card: str) -> dict:
+def phase_mesh(card: str, owner: bool = False) -> dict:
     """The data-parallel mesh (parallel/mesh.py, parallel/train_step.py) at
     world size 1 through its launcher: spawn_on_mesh starts one child
     process on cuda:0 in an NCCL group met through a file:// rendezvous,
@@ -1004,17 +1019,23 @@ def phase_mesh(card: str) -> dict:
         against the uninterrupted unsharded run;
     (f) launches: fused_adam_leaf once per leaf a step and scatter_rows
         once a step, the unsharded run's counts; the collectives per step;
-    (g) ms per step of each run, sharded beside unsharded."""
+    (g) ms per step of each run, sharded beside unsharded.
+    With owner, the same child then runs phase owner_gather (owner_rank),
+    which this prints as its own line and returns under "owner_gather"."""
     import torch
 
     from graphqembed_tpu_torch.parallel import spawn_on_mesh
 
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    got = spawn_on_mesh(mesh_rank, 1, device="cuda", timeout=600)
+    got = spawn_on_mesh(mesh_rank, 1, owner, device="cuda", timeout=600)
+    owned = got.pop("owner_gather", None)
     got = {"phase": "mesh", "card": card,
            "seconds": time.perf_counter() - t0, **got}
     emit(got)
+    if owned is not None:
+        emit({"phase": "owner_gather", "card": card, **owned})
+        got["owner_gather"] = owned
     return got
 
 
@@ -1038,8 +1059,9 @@ def _equal_trees(a, b, what: str):
         check(a == b, f"{what}: {a} != {b}")
 
 
-def mesh_rank(mesh) -> dict:
-    """The child of phase_mesh: rank 0 of a one-rank NCCL mesh."""
+def mesh_rank(mesh, owner: bool = False) -> dict:
+    """The child of phase_mesh: rank 0 of a one-rank NCCL mesh; with owner,
+    then phase owner_gather's checks on the same graph (`owner_rank`)."""
     import shutil
     import tempfile
     from pathlib import Path
@@ -1067,6 +1089,8 @@ def mesh_rank(mesh) -> dict:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     out["onthefly"] = mesh_onthefly_check(mesh, cfg)
+    if owner:
+        out["owner_gather"] = owner_rank(mesh, graph)
     return out
 
 
@@ -1136,7 +1160,8 @@ def mesh_step_check(mesh, cfg, graph) -> dict:
           and s["launches"]["scatter_rows"] > 0,
           f"step launches {s['launches']}")
     check(s["collectives"] == {"all_gather": 4, "reduce_scatter": 4,
-                               "all_reduce": 4, "broadcast": 0, "barrier": 0},
+                               "all_reduce": 4, "all_to_all": 0,
+                               "broadcast": 0, "barrier": 0},
           f"step collectives {s['collectives']}")
     return {"losses": [float(v) for v in u["losses"]],
             "launches": s["launches"], "collectives": s["collectives"],
@@ -1160,8 +1185,8 @@ def _check_collectives(colls: dict, res, what: str):
     evals = len(res.val_history)
     saves = colls["barrier"]
     want = {"all_gather": steps + evals + 4 * saves + 2,
-            "reduce_scatter": steps, "all_reduce": steps, "broadcast": evals,
-            "barrier": saves}
+            "reduce_scatter": steps, "all_reduce": steps, "all_to_all": 0,
+            "broadcast": evals, "barrier": saves}
     check(colls == want, f"{what}: collectives {colls}, want {want}")
 
 
@@ -1413,7 +1438,8 @@ def _close_runs(m: dict, one: dict, n: int, what: str) -> dict:
     evals = len(ms["val_history"])
     # sharding the caller's parameters broadcasts the 3 replicated leaves
     want = {"all_gather": steps + evals + 2, "reduce_scatter": steps,
-            "all_reduce": steps, "broadcast": evals + n_leaves - 1, "barrier": 0}
+            "all_reduce": steps, "all_to_all": 0,
+            "broadcast": evals + n_leaves - 1, "barrier": 0}
     check(ms["collectives"] == want, f"{what}: collectives {ms['collectives']}, want {want}")
     return {"ranks": n, "steps": steps, "val_history": ms["val_history"],
             "val_history_one": os_["val_history"], "max_auc_diff": auc_diff,
@@ -1490,6 +1516,514 @@ def phase_mesh_cards(n: int = 4) -> dict:
     return out
 
 
+# The owner-compute slice (parallel/gather.py, halo.py, deep.py,
+# multihost.py): phase owner_gather at one NCCL rank (in phase mesh's child),
+# phase_owner_cards(4) across four cards (its own chip call). OWNER_STEPS
+# host batches of the bench graph, alternating 2p and 3i, depth 1, mean,
+# float32, d = 128, B = 512, FusedAdamOpt.
+OWNER_STEPS = 50
+OWNER_WARM = 3
+# Per step of the sharded depth-1 step (parallel/deep.py's docstring): k + 1
+# table gathers and k adjacency gathers, two all-to-alls each forward, one
+# per table gather backward: 5k + 3 = 8; one all-reduce (small leaves and
+# the loss); depth + 1 = 2 scatter_rows (one per table gather, on the
+# owner's shard); one fused_adam_leaf per leaf (7: the table shard,
+# inter/post, inter/pre, proj/W and the three encoder leaves).
+OWNER_COLLECTIVES = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 1,
+                     "all_to_all": 8, "broadcast": 0, "barrier": 0}
+OWNER_SCATTERS = 2
+# Four ranks against one process after OWNER_STEPS Adam steps: the ranks'
+# partial sums reassociate (loss, small leaves' gradients), and Adam turns
+# roundoff in near-zero gradients into steps of up to lr; MESH_CARDS_TOL's
+# criteria, the loss at its rtol
+OWNER_CARDS_TOL = {"loss_rtol": 2e-2, "table_mean": 1e-3, "table_far": 0.01,
+                   "table_far_share": 0.01, "gather_grad_rtol": 1e-6,
+                   "gather_grad_atol_of_max": 1e-6, "halo_atol": 2e-6}
+
+
+def owner_cfg():
+    from graphqembed_tpu_torch.config import GQEConfig
+
+    return GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
+                     batch_size=512, lr=0.01, depth=1, aggregator="mean")
+
+
+def owner_batches(graph, cfg, dev, n_steps=OWNER_STEPS + OWNER_WARM) -> list:
+    """n_steps host batches (TrainData, seeded: the same on every rank and
+    process), alternating 2p and 3i, in rows form: [(structure, {anchors,
+    rels [B, n], inter_modes [B], targets, negs, mask} on dev)]."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.training.loop import TrainData
+
+    sampler = QuerySampler(graph, np.random.default_rng(3), max_negs=30)
+    data = TrainData(graph.schema, sampler.sample_many("2p", 600)
+                     + sampler.sample_many("3i", 600), cfg.batch_size, seed=4)
+    out = []
+    for t in range(n_steps):
+        s = ("2p", "3i")[t % 2]
+        rels, anchors, targets, negs, mask, im = data.sample_batch(s)
+        b = len(targets)
+
+        def on(x, dtype=torch.int64):
+            return torch.as_tensor(np.asarray(x)).to(dev, dtype)
+
+        out.append((s, {"anchors": on(anchors),
+                        "rels": on(np.tile(np.asarray(rels)[None], (b, 1))),
+                        "inter_modes": on(np.full(b, int(im))),
+                        "targets": on(targets), "negs": on(negs),
+                        "mask": on(mask, torch.bool)}))
+    return out
+
+
+def _owner_runs(cfg, graph, tables, batches, mesh, dev, kinds) -> dict:
+    """Each kind of deep step over `batches` from the same fresh parameters
+    (seed 0): "owner" make_sharded_deep_train_step on `mesh`; "whole"
+    sharded_body's deep step on `mesh` (the whole table all-gathered);
+    "one" training/device_data.py::_train_body in this process. The first
+    OWNER_WARM batches warm each kind up on throwaway parameters; the rest
+    are timed (host clock, synchronized) with launches and collectives
+    counted. {kind: params, state, losses, ms_per_step, launches,
+    collectives}."""
+    import torch
+
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.parallel.deep import (
+        ShardedNeighborTables,
+        make_sharded_deep_train_step,
+    )
+    from graphqembed_tpu_torch.parallel.train_step import sharded_body
+    from graphqembed_tpu_torch.training.device_data import FusedAdamOpt, _train_body
+
+    placed = tables.to(dev)
+    st = ShardedNeighborTables.build(mesh, tables) if mesh is not None else None
+    out = {}
+    for kind in kinds:
+        opt = FusedAdamOpt(cfg.lr)
+        if kind == "owner":
+            step = make_sharded_deep_train_step(cfg, opt, mesh, st)
+
+            def run(carry, s, b):
+                p, o, loss = step(*carry, s, b["anchors"], b["rels"],
+                                  b["inter_modes"], b["targets"], b["negs"],
+                                  b["mask"])
+                return (p, o), loss
+        else:
+            bodies = {s: (sharded_body(cfg, opt, mesh, s, 1.0, placed)
+                          if kind == "whole" else _train_body(cfg, opt, s, 1.0, placed))
+                      for s in ("2p", "3i")}
+
+            def run(carry, s, b):
+                return bodies[s](carry, b)
+
+        def fresh():
+            p = init_params(cfg, graph.schema, torch.Generator().manual_seed(0),
+                            device=dev)
+            p = pm.shard_params(p, mesh) if kind != "one" else p
+            return (p, opt.init(p))
+
+        carry = fresh()
+        for s, b in batches[:OWNER_WARM]:
+            carry, _ = run(carry, s, b)
+        carry = fresh()
+        torch.cuda.synchronize()
+        reset_counts()
+        pm.reset_collective_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for s, b in batches[OWNER_WARM:]:
+            carry, loss = run(carry, s, b)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[kind] = {"params": carry[0], "state": carry[1],
+                     "losses": torch.stack(losses),
+                     "ms_per_step": 1e3 * wall / len(losses),
+                     "launches": read_counts(),
+                     "collectives": pm.collective_counts()}
+    return out
+
+
+def _owner_counts(run: dict, n_leaves: int, what: str):
+    """(c): the launches and collectives per step the docstring derives."""
+    steps = run["losses"].shape[0]
+    check(run["launches"] == want_counts(fused_adam_leaf=n_leaves * steps,
+                                         scatter_rows=OWNER_SCATTERS * steps),
+          f"{what}: launches {run['launches']} over {steps} steps, want "
+          f"fused_adam_leaf {n_leaves}/step and scatter_rows "
+          f"{OWNER_SCATTERS}/step")
+    want = {k: v * steps for k, v in OWNER_COLLECTIVES.items()}
+    check(run["collectives"] == want,
+          f"{what}: collectives {run['collectives']}, want {want}")
+
+
+def owner_rank(mesh, graph) -> dict:
+    """Phase owner_gather in phase mesh's child, rank 0 of a one-rank NCCL
+    mesh, every all-to-all the identity, on the bench graph (35,200 nodes,
+    neighbor tables S = 8, d = 128, float32):
+    (a) sharded_gather bit for bit against take_rows, forward and the
+        table's gradient, on the first 3i batch's 2,560 ids and on 81,920
+        seeded ids (a depth-1 level's count); one halo hop (expand_hop, the
+        union adjacency, S = 8) against expand_hop_reference;
+    (b) make_sharded_deep_train_step against the unsharded deep step
+        (_train_body: make_deep_encoder + margin_loss_rows_onegather) over
+        OWNER_STEPS batches: losses, every leaf and both Adam moments bit
+        for bit;
+    (c) the launches and collectives per step (OWNER_COLLECTIVES,
+        OWNER_SCATTERS, one fused Adam launch per leaf), held exactly;
+        scatter_rows on the sharded step's own inputs and fused_adam_leaf
+        at its table shard, each bit for bit against its plain version and
+        timed beside its bound and library call;
+    (d) ms per step of the three: sharded, unsharded, and sharded_body's
+        deep step (whole-table gather), on the same batches (recorded)."""
+    import torch
+
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
+    from graphqembed_tpu_torch.models.params import init_params, tree_leaves
+    from graphqembed_tpu_torch.ops.grads import take_rows
+    from graphqembed_tpu_torch.parallel.deep import (
+        ShardedNeighborTables,
+        make_sharded_deep_train_step,
+    )
+    from graphqembed_tpu_torch.parallel.gather import sharded_gather
+    from graphqembed_tpu_torch.parallel.halo import (
+        build_union_neighbor_table,
+        expand_hop,
+        expand_hop_reference,
+    )
+    from graphqembed_tpu_torch.training.device_data import FusedAdamOpt, _batch_ids
+
+    t_phase = time.perf_counter()
+    dev = mesh.device
+    cfg = owner_cfg()
+    tables = NeighborTables.build(graph, sample_size=8, seed=0)
+    batches = owner_batches(graph, cfg, dev)
+    out = {"steps": OWNER_STEPS, "tolerance": "bit for bit"}
+
+    # (a)
+    table = init_params(cfg, graph.schema, torch.Generator().manual_seed(0),
+                        device=dev)["table"].detach()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    id_sets = {"3i_batch_2560": _batch_ids(batches[1][1]).reshape(-1),
+               "seeded_81920": torch.randint(0, table.shape[0], (81920,),
+                                             generator=gen, device=dev)}
+    out["gather"] = {}
+    for name, ids in id_sets.items():
+        r = torch.randn((ids.numel(), table.shape[1]), generator=gen, device=dev)
+        t1, t2 = table.clone().requires_grad_(), table.clone().requires_grad_()
+        got, want = sharded_gather(mesh, t1, ids), take_rows(t2, ids)
+        (g1,), (g2,) = (torch.autograd.grad((x * r).sum(), [t])
+                        for x, t in ((got, t1), (want, t2)))
+        check(torch.equal(got, want), f"owner gather {name}: rows differ")
+        check(torch.equal(g1, g2), f"owner gather {name}: gradients differ")
+        out["gather"][name] = {"ids": ids.numel(), "bit_for_bit": True}
+    union = torch.from_numpy(build_union_neighbor_table(graph, 8, 0)).to(dev)
+    d = table.shape[1]
+    w = torch.randn((2, d, d), generator=gen, device=dev) / d ** 0.5
+    ids = id_sets["3i_batch_2560"]
+    h = expand_hop(mesh, table, union, ids, w[0], w[1])
+    h_ref = expand_hop_reference(table, union, ids, w[0], w[1])
+    err = float((h - h_ref).abs().max())
+    check(err <= OWNER_CARDS_TOL["halo_atol"], f"halo hop: {err} from reference")
+    out["halo"] = {"ids": ids.numel(), "max_abs_err": err,
+                   "bit_for_bit": bool(torch.equal(h, h_ref))}
+
+    # (b), (c), (d)
+    runs = _owner_runs(cfg, graph, tables, batches, mesh, dev,
+                       ("owner", "one", "whole"))
+    o, u = runs["owner"], runs["one"]
+    _equal_trees(o["losses"], u["losses"], "owner losses")
+    _equal_trees(o["params"], u["params"], "owner params")
+    _equal_trees(o["state"], u["state"], "owner Adam state")
+    n_leaves = len(tree_leaves(o["params"]))
+    _owner_counts(o, n_leaves, "owner")
+    check(u["launches"] == o["launches"],
+          f"unsharded launches {u['launches']} != sharded {o['launches']}")
+    out.update(bit_for_bit=True, n_leaves=n_leaves,
+               losses=[float(v) for v in o["losses"]],
+               launches=o["launches"], collectives=o["collectives"],
+               ms_per_step={k: r["ms_per_step"] for k, r in runs.items()},
+               launches_whole=runs["whole"]["launches"],
+               collectives_whole=runs["whole"]["collectives"])
+
+    # the path's kernels at its own shapes: scatter_rows on one sharded
+    # step's inputs (level 1 and level 0 of a 3i batch), fused_adam_leaf at
+    # the table shard
+    opt = FusedAdamOpt(cfg.lr)
+    p = init_params(cfg, graph.schema, torch.Generator().manual_seed(1), device=dev)
+    step = make_sharded_deep_train_step(cfg, opt, mesh,
+                                        ShardedNeighborTables.build(mesh, tables))
+    s, b = batches[1]
+    seen = capture_scatter_inputs(lambda: step(
+        p, opt.init(p), s, b["anchors"], b["rels"], b["inter_modes"],
+        b["targets"], b["negs"], b["mask"]))
+    check(len(seen) == OWNER_SCATTERS, f"owner step scatters: {len(seen)}")
+    out["scatter"] = check_deep_scatter(dev, {
+        f"owner_d1_{c[1].numel()}_ids": c for c in seen})
+    out["adam"] = check_narrow_adam(dev, {"table shard": tuple(table.shape)})
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def phase_owner_gather(card: str) -> dict:
+    """Phase owner_gather alone (owner_rank in its own child process; main
+    runs it in phase mesh's child): `python3 -c "import torch, chip_smoke
+    as c; torch.backends.cuda.matmul.allow_tf32=False; c.phase_build();
+    c.phase_owner_gather(c.card_name_and_power())"`."""
+    from graphqembed_tpu_torch.parallel import spawn_on_mesh
+
+    got = spawn_on_mesh(owner_gather_rank, 1, device="cuda", timeout=600)
+    got = {"phase": "owner_gather", "card": card, **got}
+    emit(got)
+    return got
+
+
+def owner_gather_rank(mesh) -> dict:
+    import torch
+
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return owner_rank(mesh, synthetic_graph(seed=0, scale=40.0, avg_degree=10.0))
+
+
+def owner_cards_rank(mesh) -> dict:
+    """One rank of phase_owner_cards: the gather and the halo hop on its
+    own ids against the whole table's take_rows and the one-process hop;
+    then the sharded deep step and sharded_body's (whole-table gather)
+    over the same batches (_owner_runs), the sharded run's table gathered
+    whole."""
+    import torch
+
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
+    from graphqembed_tpu_torch.models.params import init_params, tree_leaves
+    from graphqembed_tpu_torch.ops.grads import take_rows
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.parallel.gather import sharded_gather
+    from graphqembed_tpu_torch.parallel.halo import (
+        build_union_neighbor_table,
+        expand_hop,
+        expand_hop_reference,
+    )
+    from graphqembed_tpu_torch.parallel.train_step import batch_rows
+    from graphqembed_tpu_torch.training.device_data import _batch_ids
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, tol = mesh.device, OWNER_CARDS_TOL
+    cfg = owner_cfg()
+    graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    tables = NeighborTables.build(graph, sample_size=8, seed=0)
+    batches = owner_batches(graph, cfg, dev)
+    n_nodes = graph.schema.n_nodes
+
+    whole = init_params(cfg, graph.schema, torch.Generator().manual_seed(0),
+                        device=dev)["table"].detach()
+    shard = pm.shard_params({"table": whole}, mesh)["table"].detach()
+    ids = _batch_ids(batches[1][1])[batch_rows(mesh, cfg.batch_size)].reshape(-1)
+    r = torch.randn((ids.numel(), whole.shape[1]),
+                    generator=torch.Generator(device=dev).manual_seed(6 + mesh.rank),
+                    device=dev)
+    t1, t2 = shard.clone().requires_grad_(), whole.clone().requires_grad_()
+    got, want = sharded_gather(mesh, t1, ids), take_rows(t2, ids)
+    check(torch.equal(got, want), f"rank {mesh.rank}: owner gather rows differ")
+    (g1,), (g2,) = (torch.autograd.grad((x * r).sum(), [t])
+                    for x, t in ((got, t1), (want, t2)))
+    g1 = pm.gather_table(g1, mesh, n_nodes)
+    g2 = pm.all_reduce_sum(g2, mesh)[:n_nodes]
+    # each row's cotangents summed on its owner, then over the ranks: the
+    # order differs from one dense sum
+    grad_err = float((g1 - g2).abs().max())
+    allowed = (tol["gather_grad_rtol"] * g2.abs()
+               + tol["gather_grad_atol_of_max"] * float(g2.abs().max()))
+    check(bool(((g1 - g2).abs() <= allowed).all()),
+          f"owner gather gradient: {grad_err} (max |g| {float(g2.abs().max())})")
+    union = torch.from_numpy(build_union_neighbor_table(graph, 8, 0)).to(dev)
+    per = shard.shape[0]
+    upad = torch.cat([union, union.new_full((per * mesh.size - n_nodes, 8), -1)])
+    d = whole.shape[1]
+    w = torch.randn((2, d, d), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev) / d ** 0.5
+    h = expand_hop(mesh, shard, upad[mesh.rank * per:(mesh.rank + 1) * per].clone(),
+                   ids, w[0], w[1])
+    halo_err = float((h - expand_hop_reference(whole, union, ids, w[0], w[1])).abs().max())
+    check(halo_err <= tol["halo_atol"], f"rank {mesh.rank}: halo hop {halo_err}")
+
+    runs = _owner_runs(cfg, graph, tables, batches, mesh, dev, ("owner", "whole"))
+    o = runs["owner"]
+    _owner_counts(o, len(tree_leaves(o["params"])), f"rank {mesh.rank} owner")
+    return {"gather_ids": ids.numel(), "gather_grad_max_abs_err": grad_err,
+            "halo_max_abs_err": halo_err, "losses": o["losses"].cpu(),
+            "table": pm.unshard_tree(o["params"], mesh, n_nodes)["table"].detach().cpu(),
+            "ms_per_step": {k: v["ms_per_step"] for k, v in runs.items()},
+            "losses_whole": runs["whole"]["losses"].cpu(),
+            "table_whole": pm.unshard_tree(runs["whole"]["params"], mesh,
+                                           n_nodes)["table"].detach().cpu(),
+            "launches": o["launches"], "collectives": o["collectives"]}
+
+
+def multihost_card_main(pid: int, n: int, addr: str) -> None:
+    """One of n processes of phase_owner_cards' multi-host start, started
+    by hand: initialize_multihost over the TCP rendezvous at addr (NCCL, on
+    the card of its local rank), the first 3i batch assembled from each
+    process's local rows with global_batch_from_local, one sharded deep
+    step; prints MULTIHOST_OK with the loss."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.parallel.deep import (
+        ShardedNeighborTables,
+        make_sharded_deep_train_step,
+    )
+    from graphqembed_tpu_torch.parallel.multihost import (
+        global_batch_from_local,
+        initialize_multihost,
+    )
+    from graphqembed_tpu_torch.parallel.train_step import batch_rows
+    from graphqembed_tpu_torch.training.device_data import FusedAdamOpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    info = initialize_multihost(addr, n, pid, timeout=300)
+    check(info["process_count"] == n and info["process_index"] == pid, info)
+    mesh = pm.make_mesh()
+    check(mesh.device == torch.device("cuda", pid), f"rank {pid} on {mesh.device}")
+    cfg = owner_cfg()
+    graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    s, b = owner_batches(graph, cfg, "cpu", 2)[1]
+    mine = batch_rows(mesh, cfg.batch_size)
+    g = {k: global_batch_from_local(mesh, v[mine].numpy()) for k, v in b.items()}
+    check(all(torch.equal(g[k].cpu(), v) for k, v in b.items()),
+          "global_batch_from_local: not the global batch")
+    opt = FusedAdamOpt(cfg.lr)
+    p = pm.shard_params(init_params(cfg, graph.schema,
+                                    torch.Generator().manual_seed(0), device=mesh.device), mesh)
+    st = ShardedNeighborTables.build(mesh, NeighborTables.build(graph, sample_size=8, seed=0))
+    step = make_sharded_deep_train_step(cfg, opt, mesh, st)
+    p, _, loss = step(p, opt.init(p), s, g["anchors"], g["rels"], g["inter_modes"],
+                      g["targets"], g["negs"], g["mask"])
+    loss = float(loss)
+    check(np.isfinite(loss), f"multihost loss {loss}")
+    print(f"MULTIHOST_OK pid={pid} procs={n} loss={loss!r}", flush=True)
+    import torch.distributed as dist
+    dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _multihost_cards(n: int) -> dict:
+    """n processes on this host's n cards, each started by hand and joined
+    by initialize_multihost over tcp://127.0.0.1:<free port>: every rank's
+    loss of the one sharded step must be the same."""
+    import re
+
+    addr = f"127.0.0.1:{_free_port()}"
+    env = {k: v for k, v in os.environ.items() if k != "LOCAL_RANK"}
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke as c; "
+         f"c.multihost_card_main({pid}, {n}, {addr!r})"],
+        cwd=here, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(n)]
+    outs = []
+    try:
+        for pid, p in enumerate(procs):
+            out, err = p.communicate(timeout=240)
+            check(p.returncode == 0, f"multihost process {pid}: rc "
+                  f"{p.returncode}\n{err[-3000:]}")
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    losses = []
+    for pid, out in enumerate(outs):
+        m = re.search(rf"MULTIHOST_OK pid={pid} procs={n} loss=(\S+)", out)
+        check(m is not None, f"multihost process {pid}: {out[-500:]}")
+        losses.append(float(m.group(1)))
+    check(len(set(losses)) == 1, f"multihost losses differ: {losses}")
+    return {"processes": n, "losses": losses,
+            "seconds": time.perf_counter() - t0}
+
+
+def phase_owner_cards(n: int = 4) -> dict:
+    """The owner-compute slice across n cards of this host, its own chip
+    call: `python3 -c "import chip_smoke as c; c.phase_build();
+    c.phase_owner_cards(4)"`. spawn_on_mesh(owner_cards_rank, n): the
+    4-rank gather (bit for bit against take_rows, gradient within
+    OWNER_CARDS_TOL) and halo hop (against expand_hop_reference); the
+    sharded deep step over OWNER_STEPS batches, its launches and
+    collectives per step on rank 0; sharded_body's deep step (the 1-D
+    mesh, whole-table gather) on the same batches. This process then runs
+    the one-process deep step (_train_body) on cuda:0 over the same
+    batches: the sharded run's losses and whole table within
+    OWNER_CARDS_TOL of it. ms per step of the three. Then n processes
+    started with initialize_multihost (`_multihost_cards`). Prints one
+    JSON line and returns it."""
+    import torch
+
+    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
+    from graphqembed_tpu_torch.parallel import spawn_on_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    check(torch.cuda.device_count() >= n,
+          f"{n} cards wanted, {torch.cuda.device_count()} visible")
+    card = card_name_and_power()
+    tol = OWNER_CARDS_TOL
+    t0 = time.perf_counter()
+    m = spawn_on_mesh(owner_cards_rank, n, device="cuda", timeout=420)
+    mesh_s = time.perf_counter() - t0
+    cfg, dev = owner_cfg(), torch.device("cuda", 0)
+    graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    one = _owner_runs(cfg, graph, NeighborTables.build(graph, sample_size=8, seed=0),
+                      owner_batches(graph, cfg, dev), None, dev, ("one",))["one"]
+    a, b = m["losses"].double(), one["losses"].cpu().double()
+    loss_rel = float(((a - b).abs() / b.abs()).max())
+    check(loss_rel <= tol["loss_rtol"], f"owner cards: losses differ by {loss_rel}")
+    diff = (m["table"] - one["params"]["table"].detach().cpu()).abs()
+    mean, far = float(diff.mean()), float((diff > tol["table_far"]).float().mean())
+    check(mean < tol["table_mean"] and far < tol["table_far_share"],
+          f"owner cards: table mean |diff| {mean}, share > {tol['table_far']}: {far}")
+    # the 1-D mesh's run (whole-table gather) against the same process:
+    # how far plain reassociation moves the same steps (recorded)
+    w_rel = float(((m["losses_whole"].double() - b).abs() / b.abs()).max())
+    w_mean = float((m["table_whole"] - one["params"]["table"].detach().cpu())
+                   .abs().mean())
+    out = {"phase": "owner_cards", "card": card, "cards": n, "mesh_s": mesh_s,
+           "tolerance": tol, "steps": OWNER_STEPS,
+           "gather_ids_rank0": m["gather_ids"],
+           "gather_grad_max_abs_err": m["gather_grad_max_abs_err"],
+           "halo_max_abs_err_rank0": m["halo_max_abs_err"],
+           "max_loss_rel_diff": loss_rel, "table_mean_abs_diff": mean,
+           "table_share_far": far, "whole_table_gather_max_loss_rel_diff": w_rel,
+           "whole_table_gather_table_mean_abs_diff": w_mean,
+           "ms_per_step": {"owner": m["ms_per_step"]["owner"],
+                           "whole_table_gather": m["ms_per_step"]["whole"],
+                           "one_process": one["ms_per_step"]},
+           "launches_rank0": m["launches"], "collectives_rank0": m["collectives"]}
+    out["multihost"] = _multihost_cards(n)
+    emit(out)
+    return out
+
+
 # The tensor-parallel step and the scaling harness on one card (phase
 # tp_scaling). TP_SCAN: the scan's chunks (structure, steps, use_hard).
 TP_SCAN = [("2p", 10, False), ("3i", 10, True), ("2p", 10, False),
@@ -1503,7 +2037,7 @@ TP_HOST = ("2p", "3i", "2p", "3i")
 TP_HOPS = {"host": {"1p": 1, "2p": 2, "3p": 3, "2i": 2, "3i": 3, "pi": 3, "ip": 3},
            "scan": {"1p": 1, "2p": 2, "3p": 3, "2i": 1, "3i": 1, "pi": 2, "ip": 2}}
 DP_STEP = {"all_gather": 1, "reduce_scatter": 1, "all_reduce": 1,
-           "broadcast": 0, "barrier": 0}
+           "all_to_all": 0, "broadcast": 0, "barrier": 0}
 # the JAX TP test's tolerances (tests/test_tp.py) for a TP step against
 # one process
 TP_TOL = {"loss_rtol": 2e-5, "loss_atol": 1e-6, "leaf_rtol": 2e-4,
@@ -1746,10 +2280,10 @@ NARROW_SHARDS = {f"{leaf} M={m}": shape(m)
                      ("inter/post", lambda m: (5, 128 // m, 128)))}
 
 
-def check_narrow_adam(dev) -> dict:
-    """fused_adam_leaf at NARROW_SHARDS: bit for bit against its plain
-    version over five steps, then timed (adam_leaf_exact,
-    adam_leaf_timing)."""
+def check_narrow_adam(dev, shapes=NARROW_SHARDS) -> dict:
+    """fused_adam_leaf at `shapes` ({name: shape}, the TP shards unless
+    given): bit for bit against its plain version over five steps, then
+    timed (adam_leaf_exact, adam_leaf_timing)."""
     import torch
 
     gen = torch.Generator().manual_seed(12)
@@ -1761,7 +2295,7 @@ def check_narrow_adam(dev) -> dict:
         return [rnd(shape), rnd(shape, 0.01), rnd(shape, 1e-3).abs()]
 
     out = {}
-    for name, shape in NARROW_SHARDS.items():
+    for name, shape in shapes.items():
         out[name] = {**adam_leaf_exact(shape, rnd, adam_state, 0.01),
                      **adam_leaf_timing(dev, shape, rnd, adam_state, 0.01)}
     return out
@@ -3543,7 +4077,8 @@ def main(argv):
                                         trained["train_qps"])
     phase_train_sparse(dev, card, work)
     phase_multitask(dev, card, work)
-    mesh = phase_mesh(card)
+    mesh = phase_mesh(card, owner=True)
+    owner = mesh["owner_gather"]
     tp = phase_tp_scaling(dev, card)
     eval_launches = phase_eval(trained, card)
     protocol, onthefly, deep, stream, protocol_data = protocol_phases(
@@ -3605,6 +4140,13 @@ def main(argv):
                 "onthefly": mesh["onthefly"]["sharded"]["launches"][name]}
 
     kernels[0]["launches_mesh"] = mesh_launches("fused_adam_leaf")
+    # phase owner_gather: the sharded depth-1 step's OWNER_STEPS steps, and
+    # the kernel at its table shard
+    kernels[0]["launches_owner"] = owner["launches"]["fused_adam_leaf"]
+    kernels[0]["owner_table_shard"] = {
+        k: owner["adam"]["table shard"][k]
+        for k in ("shape", "max_abs_err", "ms", "plain_ms", "library_ms",
+                  "bound_ms", "bound_by")}
     # phase tp_scaling: the (1, 1) mesh's host steps and scan, and the
     # kernel at the TP shards' shapes of a model axis of 2 and 4
     kernels[0]["launches_tp"] = {k: v["fused_adam_leaf"]
@@ -3638,6 +4180,11 @@ def main(argv):
          "launches_stream": stream_launches("scatter_rows"),
          "launches_mesh": mesh_launches("scatter_rows"),
          "launches_tp": {k: v["scatter_rows"] for k, v in tp["launches"].items()},
+         "launches_owner": owner["launches"]["scatter_rows"],
+         # the sharded deep step's own inputs (phase owner_gather)
+         "owner": {name: {k: r[k] for k in ("shape", "length", "ms", "bound_ms",
+                                             "library_ms", "zeros_index_add_ms")}
+                   for name, r in owner["scatter"].items()},
          **oracle_keys("scatter_rows"),
          "max_abs_err": sc["max_abs_err"],
          "ms": sc_t["ms"], "plain_ms": sc_t["plain_ms"],

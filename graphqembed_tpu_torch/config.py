@@ -24,6 +24,20 @@ PROJECTION_KINDS = ("transe", "distmult", "bilinear")
 INTERSECTION_KINDS = ("min", "mean")
 SCORING_KINDS = ("cosine", "dot", "l2")  # edge-scoring decoder family
 
+# Measured production recommendation for payload-bound meshes
+# (experiments/gather_waste.py, docs/DESIGN.md §4 addendum): capacity factor
+# 2.0 keeps owner-compute gather drops at ~0.03% for QUERY-id traffic
+# (anchors/targets/negatives, hub-skewed) while cutting the all-to-all
+# payload ~4x vs the exact worst case. SCOPE LIMIT, measured in
+# tests/test_sharded_deep.py::test_recommended_capacity_factor: depth>0
+# NEIGHBOR traffic is mode-clustered (whole modes land on few shards when
+# N/shard is small), which is structurally more skewed — there factor 4.0
+# is the recommendation (still halves the worst-case payload; bit-exact in
+# the test's deep path). The CONFIG DEFAULT stays exact
+# (gather_capacity_factor=0.0 — zero drops under any skew).
+RECOMMENDED_GATHER_CAPACITY_FACTOR = 2.0
+RECOMMENDED_GATHER_CAPACITY_FACTOR_DEEP = 4.0
+
 
 @dataclasses.dataclass(frozen=True)
 class GQEConfig:

@@ -72,13 +72,12 @@ def dryrun_multichip(n_devices: int, device=None, timeout: float = 900) -> dict:
     scan on 1p and 2i; with n_devices ≥ 4 and even, the tensor-parallel
     step on an (n/2, 2) ('data', 'model') mesh; the full-protocol mesh
     trainer (burn-in, multitask, eval, checkpoints); the sharded onthefly
-    step. Asserts finite losses and a sharded table; prints one line and
-    returns rank 0's summary.
-
-    Of JAX's dry run it still lacks the owner-compute gather
-    (parallel/gather.py), the halo hop (parallel/halo.py) and the sharded
-    depth-1 SAGE step (parallel/deep.py): ROADMAP Queue 1 items 19 and 20,
-    not ported yet."""
+    step; the owner-compute gather (parallel/gather.py) and one halo hop
+    (parallel/halo.py) on the row-sharded table and union adjacency,
+    against a plain take and the one-process hop; one sharded depth-1 SAGE
+    step over the row-sharded table and adjacency (parallel/deep.py).
+    Asserts finite losses and a sharded table; prints one line and returns
+    rank 0's summary."""
     import tempfile
 
     from graphqembed_tpu_torch.device import resolve_device
@@ -95,8 +94,9 @@ def dryrun_multichip(n_devices: int, device=None, timeout: float = 900) -> dict:
     print(f"dryrun_multichip({n_devices}): ok — sharded train step, sharded "
           f"scan{tp_msg}, FULL-PROTOCOL mesh trainer (burn-in/multitask/eval/"
           f"ckpt, val {got['protocol']['best_val_auc']:.3f}), sharded onthefly "
-          f"step; table rows per rank {got['table_rows']} of "
-          f"{got['n_nodes']}", flush=True)
+          f"step, owner-compute gather, halo hop, sharded depth-1 SAGE step; "
+          f"table rows per rank {got['table_rows']} of {got['n_nodes']}",
+          flush=True)
     return got
 
 
@@ -221,4 +221,69 @@ def _dryrun_rank(mesh, ckpt_dir: str) -> dict:
                         1.0, True)
     out["onthefly"] = _finite(lf, "onthefly")
     sharded(pf, mesh, "onthefly")
+    out.update(_owner_compute(mesh, graph, cfg, s))
     return out
+
+
+def _owner_compute(mesh, graph, cfg, sampler) -> dict:
+    """The explicit-collective paths of dryrun_multichip on `mesh`: 8 ids a
+    rank gathered owner-compute from a seeded [N_pad, d] table and one halo
+    hop over the union adjacency (S = 4), each against its one-process
+    value; then one sharded depth-1 SAGE step (3i) from fresh parameters."""
+    import torch
+
+    from graphqembed_tpu_torch.config import GQEConfig
+    from graphqembed_tpu_torch.models.encoders import NeighborTables
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.parallel.deep import (
+        ShardedNeighborTables,
+        make_sharded_deep_train_step,
+    )
+    from graphqembed_tpu_torch.parallel.gather import sharded_gather
+    from graphqembed_tpu_torch.parallel.halo import (
+        build_union_neighbor_table,
+        expand_hop,
+        expand_hop_reference,
+    )
+    from graphqembed_tpu_torch.training.device_data import FusedAdamOpt
+    from graphqembed_tpu_torch.training.loop import TrainData
+
+    n, dev, d = mesh.size, mesh.device, cfg.embed_dim
+    n_nodes = graph.schema.n_nodes
+    pad = (-n_nodes) % n
+    table = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(n_nodes + pad, d)).astype(np.float32)).to(dev)
+    nbrs = build_union_neighbor_table(graph, sample_size=4)
+    nbrs = torch.from_numpy(np.concatenate(
+        [nbrs, np.full((pad, 4), -1, np.int32)])).to(dev, torch.int64)
+    per = table.shape[0] // n
+    mine = slice(mesh.data_index * per, (mesh.data_index + 1) * per)
+    ids = (torch.arange(mesh.rank * 8, (mesh.rank + 1) * 8, device=dev)
+           % n_nodes)
+    rows = sharded_gather(mesh, table[mine].clone(), ids)
+    _check(torch.equal(rows, table[ids]), "owner-compute gather != take")
+    w = torch.eye(d, device=dev)
+    h = expand_hop(mesh, table[mine].clone(), nbrs[mine].clone(), ids, w, w)
+    err = float((h - expand_hop_reference(table, nbrs, ids, w, w)).abs().max())
+    _check(bool(torch.isfinite(h).all()) and err <= 2e-6,
+           f"halo hop: {err} from the one-process hop")
+
+    b = n * 8
+    cfg_d = GQEConfig(embed_dim=d, projection="bilinear", depth=1, batch_size=b)
+    params = pm.shard_params(init_params(cfg_d, graph.schema,
+                                         torch.Generator().manual_seed(5),
+                                         device=dev), mesh)
+    opt = FusedAdamOpt(cfg_d.lr)
+    st = ShardedNeighborTables.build(
+        mesh, NeighborTables.build(graph, sample_size=4, seed=0))
+    step = make_sharded_deep_train_step(cfg_d, opt, mesh, st)
+    data = TrainData(graph.schema, sampler.sample_many("3i", 80), batch_size=b,
+                     seed=1)
+    rels, anchors, targets, negs, _, im = data.sample_batch("3i")
+    rels_rows = np.tile(np.asarray(rels)[None, :], (len(targets), 1))
+    params, _, loss = step(params, opt.init(params), "3i", anchors, rels_rows,
+                           np.full(len(targets), im), targets, negs)
+    _check(pm.is_sharded(params, mesh, n_nodes), "deep step: table not sharded")
+    return {"gather_rows": tuple(rows.shape), "halo_max_abs_err": err,
+            "deep": _finite(loss, "sharded deep step")}

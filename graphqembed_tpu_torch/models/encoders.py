@@ -169,30 +169,31 @@ def _select_matmul(cfg: GQEConfig, x: torch.Tensor, ids: torch.Tensor,
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
-def sage_encode(cfg: GQEConfig, table: torch.Tensor, enc_params: dict,
-                tables: NeighborTables, ids: torch.Tensor, depth: int = 1,
-                aggregator: str = "mean") -> torch.Tensor:
-    """Depth-k SAGE encoding of global node ids [B] -> [B, d] (module
-    docstring). Level-0 rows stay in the table's dtype, as JAX normalizes
-    them (a bfloat16 table gives bfloat16 rows); the weight products take
-    them to float32. depth=0 is the table-row gather + normalize."""
+def sage_embed(cfg: GQEConfig, enc_params: dict, index, rows, neighbors,
+               ids: torch.Tensor, depth: int, aggregator: str) -> torch.Tensor:
+    """The depth-k SAGE encoding of ids [B] (int64) -> [B, d], with the
+    rows read through two functions: rows(ids [n]) -> the raw table rows
+    [n, d], and neighbors(rel_safe [n, J], local [n]) -> the sampled
+    neighbor ids [n, J, S] (−1 pad). `index` holds node_mode, node_local
+    and mode_rel_ids as int64 tensors on the ids' device. sage_encode reads
+    a whole table; parallel/deep.py a row-sharded one, through the same
+    math."""
     if aggregator not in ("mean", "pool"):
         raise ValueError(aggregator)
-    t = tables.to(ids.device)
-    d = table.shape[1]
 
     def embed(ids: torch.Tensor, k: int) -> torch.Tensor:
-        base = l2_normalize(take_rows(table, ids))
+        base = l2_normalize(rows(ids))
         if k == 0:
             return base
-        mode = t.node_mode[ids]                              # [B]
-        local = t.node_local[ids]                            # [B]
-        rels = t.mode_rel_ids[mode]                          # [B, J], −1 pad
+        mode = index.node_mode[ids]                          # [B]
+        local = index.node_local[ids]                        # [B]
+        rels = index.mode_rel_ids[mode]                      # [B, J], −1 pad
         valid = rels >= 0
         rel_safe = rels.clamp_min(0)
-        nb = t.neighbors[rel_safe, local[:, None]]           # [B, J, S]
+        nb = neighbors(rel_safe, local)                      # [B, J, S]
         nb_mask = (nb >= 0) & valid[..., None]
         b, j_slots, s = nb.shape
+        d = base.shape[-1]
         nb_emb = embed(nb.clamp_min(0).reshape(-1), k - 1).reshape(
             b, j_slots, s, d)
         if aggregator == "mean":
@@ -216,7 +217,21 @@ def sage_encode(cfg: GQEConfig, table: torch.Tensor, enc_params: dict,
             acc = acc + rel_t[:, j]
         return l2_normalize(torch.relu(acc))
 
-    return embed(ids.reshape(-1).long(), depth)
+    return embed(ids, depth)
+
+
+def sage_encode(cfg: GQEConfig, table: torch.Tensor, enc_params: dict,
+                tables: NeighborTables, ids: torch.Tensor, depth: int = 1,
+                aggregator: str = "mean") -> torch.Tensor:
+    """Depth-k SAGE encoding of global node ids [B] -> [B, d] (module
+    docstring). Level-0 rows stay in the table's dtype, as JAX normalizes
+    them (a bfloat16 table gives bfloat16 rows); the weight products take
+    them to float32. depth=0 is the table-row gather + normalize."""
+    t = tables.to(ids.device)
+    return sage_embed(
+        cfg, enc_params, t, lambda i: take_rows(table, i),
+        lambda rel_safe, local: t.neighbors[rel_safe, local[:, None]],
+        ids.reshape(-1).long(), depth, aggregator)
 
 
 def make_deep_encoder(cfg: GQEConfig, params: dict, tables: NeighborTables,

@@ -8,8 +8,10 @@ The JAX package (its `parallel/mesh.py`) has one process own every device
 and places arrays with `NamedSharding`; GSPMD then inserts the collectives.
 Here each rank holds its own rows of the table and a copy of every other
 leaf, and the train step (parallel/train_step.py) calls the collectives
-itself, on detached tensors, outside autograd. NCCL on cards (rank r on
-`cuda:r`), gloo on the CPU.
+itself, on detached tensors, outside autograd; the owner-compute gather
+(parallel/gather.py) calls `all_to_all`, an autograd Function. NCCL on
+cards (a rank on the card of its local rank, `local_device_index`), gloo
+on the CPU.
 
 - `Sharding` describes a placement, as `NamedSharding` does: `("data",
   None)` is rows over 'data', `()` replicated, `(None, None, "model")`
@@ -49,7 +51,7 @@ AXIS = "data"
 MODEL = "model"
 
 COLLECTIVES = {AXIS: {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0,
-                      "broadcast": 0, "barrier": 0},
+                      "all_to_all": 0, "broadcast": 0, "barrier": 0},
                MODEL: {"all_gather": 0, "all_reduce": 0}}
 
 
@@ -109,12 +111,23 @@ class Sharding:
     spec: tuple
 
 
+def local_device_index(rank: int) -> int:
+    """The card of a global rank on its own host: LOCAL_RANK when the
+    launcher sets it, else the rank modulo the cards this host has (ranks
+    fill hosts in order). On a second host of 4 cards, rank 4 is cuda:0."""
+    local = os.environ.get("LOCAL_RANK")
+    if local is not None:
+        return int(local)
+    return rank % max(1, torch.cuda.device_count())
+
+
 def _rank_device(device, rank: int) -> torch.device:
-    """device None means this rank's card (`cuda:<rank>`, made the current
-    device), and raises without one; "cpu" for gloo ranks."""
+    """device None means this rank's card (`cuda:<local rank>`, made the
+    current device), and raises without one; "cpu" for gloo ranks."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        dev = torch.device("cuda", rank if dev.index is None else dev.index)
+        dev = torch.device("cuda", local_device_index(rank)
+                           if dev.index is None else dev.index)
         torch.cuda.set_device(dev)
     return dev
 
@@ -122,10 +135,10 @@ def _rank_device(device, rank: int) -> torch.device:
 def make_mesh(n: int | None = None, device=None) -> Mesh | None:
     """A mesh over the first n ranks of the initialized default process
     group (all of them when n is None), as JAX's make_mesh takes the first
-    n devices. device None means this rank's card (`cuda:<rank>`, made the
-    current device), and raises without one; "cpu" for gloo ranks. Every
-    rank of the default group must call it (new_group is collective); a
-    rank outside the first n gets None."""
+    n devices. device None means this rank's card (`cuda:<local rank>`,
+    made the current device), and raises without one; "cpu" for gloo
+    ranks. Every rank of the default group must call it (new_group is
+    collective); a rank outside the first n gets None."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(spawn_on_mesh starts one)")
@@ -342,6 +355,37 @@ def reduce_scatter_rows(full: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out
 
 
+class _AllToAll(torch.autograd.Function):
+    """Equal splits over dim 0 exchanged across 'data': block p of the
+    input goes to rank p, block p of the output came from rank p. The
+    exchange is its own inverse's transpose, so the backward is the same
+    exchange of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _exchange(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group), None
+
+
+def _exchange(x: torch.Tensor, group) -> torch.Tensor:
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    _collective("all_to_all", dist.all_to_all_single, out, x, group=group)
+    return out
+
+
+def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x [n_data·k, ...] cut into n_data equal blocks along dim 0: block p
+    sent to data rank p, and the blocks received stacked in data order.
+    Differentiable (the backward is the same exchange of the gradient); an
+    integer x passes through outside autograd."""
+    return _AllToAll.apply(x, mesh.data_group)
+
+
 def all_reduce_sum(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """Sum `t` over 'data', in place."""
     _collective("all_reduce", dist.all_reduce, t, op=dist.ReduceOp.SUM,
@@ -447,19 +491,27 @@ def mesh_consistent(tree, mesh: Mesh):
 
 _RESULT = "result.pt"
 
+# fn's arguments travel in a file: spawn writes what it pickles into each
+# child's pipe in turn, so large arguments would start the ranks one by one
+_ARGS = "args.pt"
 
-def _rank_main(rank: int, n: int, device: str, tmp: str, timeout, fn, args):
+
+def _rank_main(rank: int, n: int, device: str, tmp: str, timeout, fn):
     """One rank of spawn_on_mesh: join the group through a file in `tmp`,
-    run fn(mesh, *args), and on rank 0 write its result to `tmp`."""
+    run fn(mesh, *args) on the arguments saved there, and on rank 0 write
+    its result to `tmp`."""
+    # every rank of spawn_on_mesh is on this host: its local rank is its rank
+    os.environ["LOCAL_RANK"] = str(rank)
     if device == "cpu":
         torch.set_num_threads(1)
         backend = "gloo"
     else:
-        torch.cuda.set_device(rank)
+        torch.cuda.set_device(local_device_index(rank))
         backend = "nccl"
     kw = {} if timeout is None else {"timeout": datetime.timedelta(seconds=timeout)}
     dist.init_process_group(backend, init_method=f"file://{tmp}/rendezvous",
                             world_size=n, rank=rank, **kw)
+    args = torch.load(Path(tmp) / _ARGS, weights_only=False)
     out = fn(make_mesh(n, device=device), *args)
     if rank == 0:
         part = Path(tmp) / f".{_RESULT}"
@@ -473,7 +525,7 @@ def spawn_on_mesh(fn, n: int, *args, device="cuda", timeout: float | None = None
     (device "cuda": needs n cards) or on the CPU with gloo and one intra-op
     thread (device "cpu"), and return rank 0's result (its tensors on the
     CPU). fn must be importable by name (a module's top-level function);
-    its result is pickled with torch.save.
+    its arguments and its result are pickled with torch.save.
 
     The ranks meet through a file in a fresh temporary directory (no TCP
     port, so runs side by side never collide). When a rank fails, the
@@ -487,8 +539,9 @@ def spawn_on_mesh(fn, n: int, *args, device="cuda", timeout: float | None = None
         raise RuntimeError(f"a mesh of {n} ranks needs {n} CUDA devices; "
                            f"{torch.cuda.device_count()} visible")
     with tempfile.TemporaryDirectory(prefix="gqe-mesh-") as tmp:
+        torch.save(args, Path(tmp) / _ARGS)
         ctx = mp.start_processes(_rank_main,
-                                 args=(n, device, tmp, timeout, fn, args),
+                                 args=(n, device, tmp, timeout, fn),
                                  nprocs=n, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
         try:

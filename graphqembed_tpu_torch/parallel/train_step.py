@@ -82,16 +82,27 @@ def dp_step(mesh: Mesh, optimizer, params: dict, opt_state, loss_fn):
     """Steps (a), (d), (e), (f) around loss_fn(view) -> this rank's loss,
     where view is `params` with the whole gathered table. Returns (params,
     opt_state, loss summed over the ranks)."""
+    full = gather_table(params["table"], mesh).requires_grad_()
+    return apply_step(mesh, optimizer, params, opt_state, loss_fn,
+                      dict(params, table=full),
+                      lambda g: reduce_scatter_rows(g, mesh))
+
+
+def apply_step(mesh: Mesh, optimizer, params: dict, opt_state, loss_fn,
+               view: dict, table_grad):
+    """loss_fn(view) -> this rank's loss; autograd's gradient of every leaf
+    of `view`; the table's through table_grad (to this rank's rows), the
+    small leaves' and the loss summed over 'data' by ONE all-reduce of a
+    flat buffer; optimizer.apply on `params`. Returns (params, opt_state,
+    loss summed over the ranks)."""
     from graphqembed_tpu_torch.training.device_data import _grads_tree
 
-    full = gather_table(params["table"], mesh).requires_grad_()
-    view = dict(params, table=full)
     loss = loss_fn(view)
     paths = tree_paths(view)
     grads = dict(zip((p for p, _ in paths), torch.autograd.grad(
         loss, [x for _, x in paths], allow_unused=True,
         materialize_grads=True)))
-    grads["table"] = reduce_scatter_rows(grads["table"], mesh)
+    grads["table"] = table_grad(grads["table"])
     small = [p for p, _ in paths if p != "table"]
     flat = all_reduce_sum(torch.cat(
         [grads[p].reshape(-1) for p in small]

@@ -42,6 +42,19 @@ from graphqembed_tpu_torch.models.params import (
 )
 from graphqembed_tpu_torch.training import device_data as tdd
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Eager PyTorch at these widths is launch-bound: one intra-op thread
+    per test process keeps it fast when other workers share the cores
+    (with the default thread count a test ran 100x slower in the suite
+    than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(embed_dim=16, batch_size=32, lr=0.02, projection="bilinear",
            intersection="min")
 

@@ -3,7 +3,9 @@ package's `__graft_entry__.py`: `entry`'s example inputs are JAX's (same
 graph, queries and batch; the parameters are each package's own draw), and
 its forward on JAX's parameters and inputs gives JAX's scores within 1e-6;
 `dryrun_multichip(n)` runs every sharded path on n gloo ranks, the
-(2, 2) tensor-parallel step included at n = 4."""
+(2, 2) tensor-parallel step included at n = 4, and the owner-compute
+gather, the halo hop and the sharded depth-1 SAGE step; a rank's card is
+chosen by its local rank (parallel/mesh.py::local_device_index)."""
 
 import jax
 import numpy as np
@@ -73,9 +75,36 @@ def test_dryrun_multichip_on_gloo_ranks(n, capsys):
     assert got["protocol"]["steps"] >= 16
     assert np.isfinite(got["protocol"]["best_val_auc"])
     assert np.isfinite(got["onthefly"])
+    assert got["gather_rows"] == (8, 32)
+    assert got["halo_max_abs_err"] <= 2e-6
+    assert np.isfinite(got["deep"])
     if n == 4:
         assert got["tp"]["shape"] == (2, 2)
         assert got["tp"]["proj_W_shard"][1:] == (32, 16)
         assert np.isfinite(got["tp"]["loss"])
     else:
         assert "tp" not in got
+
+
+def test_rank_device_takes_the_local_rank(monkeypatch):
+    """On a host of 4 cards global rank 5 is cuda:1 (rank % cards) unless
+    the launcher's LOCAL_RANK says otherwise; spawn_on_mesh's ranks, all on
+    one host, keep rank r on cuda:r. The card count and set_device are
+    faked: this box has no card."""
+    from graphqembed_tpu_torch.parallel import mesh as pm
+
+    chosen = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "set_device", chosen.append)
+    monkeypatch.setattr(pm, "resolve_device", lambda d: torch.device("cuda"))
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    assert [pm.local_device_index(r) for r in range(8)] == [0, 1, 2, 3] * 2
+    assert pm._rank_device(None, 5) == torch.device("cuda", 1)
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    assert pm.local_device_index(5) == 3
+    assert pm._rank_device(None, 5) == torch.device("cuda", 3)
+    # a device named with its index keeps it
+    monkeypatch.setattr(pm, "resolve_device", lambda d: torch.device(d))
+    assert pm._rank_device("cuda:2", 5) == torch.device("cuda", 2)
+    assert chosen == [torch.device("cuda", i) for i in (1, 3, 2)]
+    assert pm._rank_device("cpu", 5) == torch.device("cpu")

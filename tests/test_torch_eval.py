@@ -31,6 +31,19 @@ from graphqembed_tpu_torch.models.params import params_from_jax
 from graphqembed_tpu_torch.training import eval as teval
 from graphqembed_tpu_torch.training import eval_apr, eval_auc
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Eager PyTorch at these widths is launch-bound: one intra-op thread
+    per test process keeps it fast when other workers share the cores
+    (with the default thread count a test ran 100x slower in the suite
+    than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-6
 STRUCTS = ("1p", "2p", "3p", "2i", "3i", "ip", "pi")
 

@@ -25,6 +25,19 @@ from graphqembed_tpu_torch.config import GQEConfig
 from graphqembed_tpu_torch.models import gqe
 from graphqembed_tpu_torch.models.params import params_from_jax, tree_leaves, tree_paths
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Eager PyTorch at these widths is launch-bound: one intra-op thread
+    per test process keeps it fast when other workers share the cores
+    (with the default thread count a test ran 100x slower in the suite
+    than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 STRUCTS = ("1p", "2p", "3p", "2i", "3i", "ip", "pi")
 N_ANCH = {"1p": 1, "2p": 1, "3p": 1, "2i": 2, "3i": 3, "ip": 2, "pi": 2}
 N_RELS = {"1p": 1, "2p": 2, "3p": 3, "2i": 2, "3i": 3, "ip": 3, "pi": 3}

@@ -271,8 +271,8 @@ def test_one_sharded_step_calls_three_collectives(w2):
     got = w2["collectives"]
     assert got["count"] == 3
     assert got["collectives"] == {"all_gather": 3, "reduce_scatter": 3,
-                                  "all_reduce": 3, "broadcast": 0,
-                                  "barrier": 0}
+                                  "all_reduce": 3, "all_to_all": 0,
+                                  "broadcast": 0, "barrier": 0}
     assert np.isfinite(got["loss"])
     assert got["banned"] == []   # the ranks import no JAX
 

@@ -100,7 +100,7 @@ _TP_RUN = r"""
 import sys
 from graphqembed_tpu_torch.cli import scaling
 from graphqembed_tpu_torch.entry import dryrun_multichip, entry
-from graphqembed_tpu_torch.parallel import tp  # noqa: F401
+from graphqembed_tpu_torch.parallel import deep, gather, halo, multihost, tp  # noqa: F401
 
 if __name__ == "__main__":
     entry(device="cpu")
@@ -117,10 +117,12 @@ if __name__ == "__main__":
 
 def test_tp_scaling_and_entry_import_no_jax(tmp_path):
     """The modules of the tensor-parallel slice (parallel/tp.py,
-    cli/scaling.py, entry.py) under the refusing import hook in the parent
-    and in every spawned rank: dryrun_multichip(4) with its (2, 2) TP step
-    and gqe-torch-scaling on 2 gloo ranks run, and no process loads JAX or
-    the JAX package."""
+    cli/scaling.py, entry.py) and of the owner-compute slice
+    (parallel/gather.py, halo.py, deep.py, multihost.py) under the refusing
+    import hook in the parent and in every spawned rank: dryrun_multichip(4)
+    with its (2, 2) TP step, gather, halo hop and sharded deep step, and
+    gqe-torch-scaling on 2 gloo ranks run, and no process loads JAX or the
+    JAX package."""
     (tmp_path / "sitecustomize.py").write_text(_REFUSE_SITE)
     path = os.pathsep.join([str(tmp_path), REPO])
     r = _run(["-c", _TP_RUN], REPO, {"PYTHONPATH": path})

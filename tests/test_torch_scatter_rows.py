@@ -25,6 +25,18 @@ from graphqembed_tpu.ops import grads as jgrads
 from graphqembed_tpu_torch.ops import grads
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Eager PyTorch at these widths is launch-bound: one intra-op thread
+    per test process keeps it fast when other workers share the cores
+    (with the default thread count a test ran 100x slower in the suite
+    than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bits(x):
     """The raw bits of a float32 or bfloat16 array, for exact equality."""
     x = np.asarray(x)

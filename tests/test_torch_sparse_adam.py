@@ -33,6 +33,18 @@ from graphqembed_tpu_torch.training.device_data import (
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Eager PyTorch at these widths is launch-bound: one intra-op thread
+    per test process keeps it fast when other workers share the cores
+    (with the default thread count a test ran 100x slower in the suite
+    than alone)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(a: torch.Tensor, b, what=""):
     b = np.asarray(b, dtype=np.float32)
     np.testing.assert_allclose(a.float().numpy(), b, rtol=1e-5,

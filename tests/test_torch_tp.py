@@ -76,7 +76,7 @@ HOPS = {"host": {"1p": 1, "2p": 2, "3p": 3, "2i": 2, "3i": 3, "pi": 3, "ip": 3},
         "scan": {"1p": 1, "2p": 2, "3p": 3, "2i": 1, "3i": 1, "pi": 2, "ip": 2}}
 INTERSECTIONS = {"2i": 1, "3i": 1, "pi": 1, "ip": 1}
 DATA_STEP = {"all_gather": 1, "reduce_scatter": 1, "all_reduce": 1,
-             "broadcast": 0, "barrier": 0}
+             "all_to_all": 0, "broadcast": 0, "barrier": 0}
 
 
 def model_step(route: str, structure: str) -> dict:

@@ -1,10 +1,13 @@
 """Rank functions for the mesh tests (tests/test_torch_mesh.py,
 tests/test_torch_sharded_trainer.py, tests/test_torch_tp.py,
-tests/test_torch_package.py): each runs
+tests/test_torch_package.py, tests/test_torch_sharded_gather.py,
+tests/test_torch_halo.py, tests/test_torch_sharded_deep.py): each runs
 on every rank of a gloo mesh started by
 graphqembed_tpu_torch.parallel.spawn_on_mesh, and rank 0's result comes
 back to the test. Spawned ranks import this module by name, so it imports
-the port only: never JAX nor the JAX package."""
+the port only: never JAX nor the JAX package. `multihost_main` (run as a
+script, `python tests/torch_mesh_workers.py <pid> <n> <host:port>`) is one
+process of tests/test_torch_multihost.py."""
 
 from __future__ import annotations
 
@@ -479,3 +482,265 @@ def case_tp_counts(mesh, cfg_kw: dict, np_params: dict, shape: tuple,
                             tdd.derived_generator("cpu", 5), 1, 1.0, False)
         out["scan"][st] = (pm.collective_counts(), pm.collective_counts("model"))
     return out
+
+
+# ---------- tests/test_torch_sharded_gather.py, test_torch_halo.py ----------
+
+
+def _rank_slice(mesh, x):
+    """This rank's equal share of the leading axis of x."""
+    per = x.shape[0] // mesh.n_data
+    return x[mesh.data_index * per:(mesh.data_index + 1) * per]
+
+
+def _whole(mesh, t):
+    """Every rank's [b, ...] result stacked in data order."""
+    return pm.gather_table(t.detach(), mesh).numpy()
+
+
+def case_gather(mesh, table: np.ndarray, ids: np.ndarray, w, factor: float) -> dict:
+    """sharded_gather_with_overflow of the whole table's rows (each rank
+    its shard) for the whole ids (each rank its share): the rows, the
+    overflow, and with w the gradient of Σ rows·w, stacked whole; the
+    collectives of the forward and backward."""
+    from graphqembed_tpu_torch.parallel.gather import sharded_gather_with_overflow
+
+    shard = _rank_slice(mesh, torch.from_numpy(table)).clone()
+    if w is not None:
+        shard.requires_grad_()
+    pm.reset_collective_counts()
+    rows, over = sharded_gather_with_overflow(
+        mesh, shard, torch.from_numpy(_rank_slice(mesh, ids)), factor)
+    out = {"rows": _whole(mesh, rows), "overflow": int(over),
+           "dtype": str(rows.dtype)}
+    if w is not None:
+        loss = (rows * torch.from_numpy(_rank_slice(mesh, w))).sum()
+        (g,) = torch.autograd.grad(loss, [shard])
+        out["collectives"] = pm.collective_counts()
+        out["grad"] = _whole(mesh, g)
+    return out
+
+
+def case_halo(mesh, table: np.ndarray, nbrs: np.ndarray, ids: np.ndarray,
+              w_self: np.ndarray, w_nb: np.ndarray) -> dict:
+    """expand_hop on this rank's frontier, one hop and two (the second from
+    the first neighbor of each frontier node, gathered sharded), stacked
+    whole; each rank's hops against expand_hop_reference on its ids."""
+    from graphqembed_tpu_torch.parallel.gather import sharded_gather
+    from graphqembed_tpu_torch.parallel.halo import expand_hop, expand_hop_reference
+
+    t, nb = torch.from_numpy(table), torch.from_numpy(nbrs)
+    ws, wn = torch.from_numpy(w_self), torch.from_numpy(w_nb)
+    mine = torch.from_numpy(_rank_slice(mesh, ids)).long()
+    shard_t, shard_nb = _rank_slice(mesh, t).clone(), _rank_slice(mesh, nb).clone()
+    h1 = expand_hop(mesh, shard_t, shard_nb, mine, ws, wn)
+    nb1 = sharded_gather(mesh, shard_nb, mine)[:, 0].clamp_min(0)
+    h2 = expand_hop(mesh, shard_t, shard_nb, nb1, ws, wn)
+    ref1 = expand_hop_reference(t, nb, mine, ws, wn)
+    ref2 = expand_hop_reference(t, nb, nb[mine][:, 0].long().clamp_min(0), ws, wn)
+    return {"hop1": _whole(mesh, h1), "hop2": _whole(mesh, h2),
+            "ref1": _whole(mesh, ref1), "ref2": _whole(mesh, ref2)}
+
+
+# ---------- tests/test_torch_sharded_deep.py ----------
+
+# the conftest's `graph` fixture (440 nodes)
+DEEP_GRAPH = {"seed": 7, "scale": 0.5, "avg_degree": 6.0}
+
+
+def deep_inputs():
+    from graphqembed_tpu_torch.models.encoders import NeighborTables as NT
+
+    graph = synthetic_graph(**DEEP_GRAPH)
+    return graph, NT.build(graph, sample_size=4, seed=0)
+
+
+def case_deep_encode(mesh, cfg_kw: dict, np_params: dict, ids: np.ndarray) -> dict:
+    """sage_encode_sharded on this rank's ids (stacked whole), and each
+    rank's output bit for bit against sage_encode of the whole table on
+    the same ids."""
+    from graphqembed_tpu_torch.models.encoders import sage_encode
+    from graphqembed_tpu_torch.parallel.deep import (
+        ShardedNeighborTables,
+        sage_encode_sharded,
+    )
+
+    cfg = GQEConfig(**cfg_kw)
+    _, tables = deep_inputs()
+    params = params_from_jax(np_params, device="cpu")
+    sp = pm.shard_params(params, mesh)
+    st = ShardedNeighborTables.build(mesh, tables)
+    mine = torch.from_numpy(_rank_slice(mesh, ids))
+    with torch.no_grad():
+        out = sage_encode_sharded(cfg, mesh, sp["table"], sp["encoder"], st,
+                                  mine, depth=cfg.depth, aggregator=cfg.aggregator)
+        ref = sage_encode(cfg, params["table"], params["encoder"], tables,
+                          mine, depth=cfg.depth, aggregator=cfg.aggregator)
+    same = torch.tensor([float(torch.equal(out, ref))])
+    return {"out": _whole(mesh, out),
+            "ranks_bit_for_bit": bool(pm.all_reduce_sum(same, mesh)[0] == mesh.size)}
+
+
+def case_deep_step(mesh, cfg_kw: dict, np_params: dict, batches: list,
+                   optimizer: str) -> dict:
+    """make_sharded_deep_train_step over `batches` (structure, anchors,
+    rels, inter_modes, targets, negs), SGD or FusedAdamOpt: the losses,
+    the collectives of each step, the whole leaves."""
+    from graphqembed_tpu_torch.parallel.deep import (
+        ShardedNeighborTables,
+        make_sharded_deep_train_step,
+    )
+
+    cfg = GQEConfig(**cfg_kw)
+    _, tables = deep_inputs()
+    opt = tdd.SGDOpt(cfg.lr) if optimizer == "sgd" else tdd.FusedAdamOpt(cfg.lr)
+    sp = pm.shard_params(params_from_jax(np_params, device="cpu"), mesh)
+    state = opt.init(sp)
+    step = make_sharded_deep_train_step(cfg, opt, mesh,
+                                        ShardedNeighborTables.build(mesh, tables))
+    losses, colls = [], []
+    for structure, *batch in batches:
+        pm.reset_collective_counts()
+        sp, state, loss = step(sp, state, structure, *batch)
+        colls.append(pm.collective_counts())
+        losses.append(float(loss))
+    n = np_params["table"].shape[0]
+    return {"losses": losses, "collectives": colls,
+            "shard_rows": sp["table"].shape[0],
+            "params": numpy_tree(pm.unshard_tree(sp, mesh, n))}
+
+
+def case_deep_one_rank(mesh, cfg_kw: dict, np_params: dict, batches: list) -> dict | None:
+    """On a mesh of the first rank alone (every all-to-all the identity):
+    the sharded deep step bit for bit against the one-process deep step
+    (training/device_data.py::_train_body: make_deep_encoder +
+    margin_loss_rows_onegather), FusedAdamOpt: losses, leaves, both Adam
+    moments."""
+    from graphqembed_tpu_torch.parallel.deep import (
+        ShardedNeighborTables,
+        make_sharded_deep_train_step,
+    )
+
+    one = pm.make_mesh(1, device="cpu")
+    if one is None:
+        return None
+    cfg = GQEConfig(**cfg_kw)
+    _, tables = deep_inputs()
+    runs = {}
+    for name in ("one_process", "mesh_1"):
+        opt = tdd.FusedAdamOpt(cfg.lr)
+        p = params_from_jax(np_params, device="cpu")
+        if name == "mesh_1":
+            p = pm.shard_params(p, one)
+            step = make_sharded_deep_train_step(
+                cfg, opt, one, ShardedNeighborTables.build(one, tables))
+        state = opt.init(p)
+        losses = []
+        for structure, *batch in batches:
+            if name == "mesh_1":
+                p, state, loss = step(p, state, structure, *batch)
+            else:
+                keys = ("anchors", "rels", "inter_modes", "targets", "negs")
+                body = tdd._train_body(cfg, opt, structure, 1.0, tables.to("cpu"))
+                (p, state), loss = body((p, state), {
+                    k: torch.as_tensor(x).long() for k, x in zip(keys, batch)})
+            losses.append(loss)
+        runs[name] = (torch.stack(losses), numpy_tree(p),
+                      [numpy_tree(m) for m in state[:2]])
+    a, b = runs["mesh_1"], runs["one_process"]
+    return {"losses": a[0].tolist(),
+            "bit_for_bit": bool(torch.equal(a[0], b[0]))
+            and all(np.array_equal(a[1][k], b[1][k]) for k in a[1])
+            and all(np.array_equal(x[k], y[k]) for x, y in zip(a[2], b[2]) for k in x)}
+
+
+# ---------- tests/test_torch_multihost.py ----------
+
+
+def multihost_main(pid: int, nproc: int, addr: str) -> None:
+    """One of nproc processes started by hand (no spawn_on_mesh):
+    initialize_multihost over a TCP rendezvous at addr, the global batch
+    from each process's local shard, one sharded step, a cross-process
+    owner-compute gather and one sharded depth-1 SAGE step. Prints one
+    MULTIHOST_OK line with the losses."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.parallel.deep import (
+        ShardedNeighborTables,
+        make_sharded_deep_train_step,
+    )
+    from graphqembed_tpu_torch.parallel.gather import sharded_gather
+    from graphqembed_tpu_torch.parallel.multihost import (
+        global_batch_from_local,
+        initialize_multihost,
+    )
+    from graphqembed_tpu_torch.training.loop import TrainData
+
+    torch.set_num_threads(1)
+    info = initialize_multihost(addr, nproc, pid, device="cpu", timeout=120)
+    assert info == {"process_index": pid, "process_count": nproc,
+                    "local_devices": 1, "global_devices": nproc}, info
+    # a second call keeps the group
+    assert initialize_multihost(addr, nproc, pid, device="cpu") == info
+    mesh = pm.make_mesh(device="cpu")
+
+    b_global = 8 * nproc
+    per = b_global // nproc
+    lo, hi = pid * per, (pid + 1) * per
+    local = np.arange(per, dtype=np.float32) + pid * per
+    gbatch = global_batch_from_local(mesh, local)
+    assert tuple(gbatch.shape) == (b_global,), gbatch.shape
+    assert float(gbatch.sum()) == b_global * (b_global - 1) / 2.0
+
+    graph = synthetic_graph(seed=0, scale=0.2, avg_degree=5.0)
+    cfg = GQEConfig(embed_dim=16, projection="bilinear", batch_size=b_global)
+    params = pm.shard_params(init_params(cfg, graph.schema,
+                                         torch.Generator().manual_seed(0),
+                                         device="cpu"), mesh)
+    opt = tdd.FusedAdamOpt(cfg.lr)
+    step = make_sharded_train_step(cfg, opt, mesh, params)
+    data = TrainData(graph.schema, QuerySampler(
+        graph, np.random.default_rng(0), max_negs=10).sample_many("2i", 60),
+        batch_size=b_global, seed=0)
+    rels, anchors, targets, negs, row_mask, im = data.sample_batch("2i")
+    whole = [global_batch_from_local(mesh, x[lo:hi])
+             for x in (anchors, targets, negs, row_mask)]
+    params, _, loss = step(params, opt.init(params), "2i", rels, whole[0],
+                           whole[1], whole[2], whole[3], im, 1.0)
+
+    # the owner-compute route across the process boundary
+    n_rows, d = 4 * nproc, 8
+    tbl = np.arange(n_rows, dtype=np.float32)[:, None] * np.ones((1, d), np.float32)
+    ids = (np.arange(nproc * 2, dtype=np.int64)[::-1] * 2) % n_rows
+    rows = sharded_gather(mesh, torch.from_numpy(_rank_slice(mesh, tbl)).clone(),
+                          torch.from_numpy(_rank_slice(mesh, ids).copy()))
+    np.testing.assert_array_equal(_whole(mesh, rows), tbl[ids])
+
+    cfg_d = dataclasses.replace(cfg, depth=1, projection="transe")
+    pd = pm.shard_params(init_params(cfg_d, graph.schema,
+                                     torch.Generator().manual_seed(1),
+                                     device="cpu"), mesh)
+    st = ShardedNeighborTables.build(
+        mesh, NeighborTables.build(graph, sample_size=4, seed=0))
+    deep = make_sharded_deep_train_step(cfg_d, opt, mesh, st)
+    d1 = TrainData(graph.schema, QuerySampler(
+        graph, np.random.default_rng(1), max_negs=10).sample_many("1p", 40),
+        batch_size=b_global, seed=0)
+    rels1, anchors1, targets1, negs1, _, im1 = d1.sample_batch("1p")
+    g = [global_batch_from_local(mesh, x[lo:hi]) for x in (anchors1, targets1, negs1)]
+    rels_rows = np.tile(np.asarray(rels1)[None, :], (b_global, 1))
+    modes_rows = np.full(b_global, int(im1))
+    pd, _, loss_d = deep(pd, opt.init(pd), "1p", g[0], rels_rows, modes_rows,
+                         g[1], g[2])
+    assert np.isfinite(float(loss)) and np.isfinite(float(loss_d))
+    print(f"MULTIHOST_OK pid={pid} procs={info['process_count']} "
+          f"devices={info['global_devices']} loss={float(loss)!r} "
+          f"deep_loss={float(loss_d)!r}", flush=True)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    multihost_main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
