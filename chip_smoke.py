@@ -56,9 +56,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
              rendezvous) holds, bit for bit, float32: make_sharded_train_step
              against make_train_step (bench workload, 4 host batches);
              run_train_device_mega(mesh=) against mesh=None (7 x 300 queries,
-             600 steps, evals and checkpoints every 200), the same checkpoint
+             300 steps, evals and checkpoints every 100), the same checkpoint
              files; run_train_onthefly(mesh=) against mesh=None (the
-             protocol's graph, 600 steps); a mesh run resumed from the
+             protocol's graph, 300 steps); a mesh run resumed from the
              unsharded run's checkpoint against the uninterrupted run; the
              launches equal the unsharded runs', the collectives per step
              counted; ms per step sharded and unsharded
@@ -87,8 +87,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
              scan step of the three; gqe-torch-scaling at its defaults and
              with --full-protocol (the one-card rows); dryrun_multichip(1);
              fused_adam_leaf bit for bit and timed at the TP shards' shapes
-             of a model axis of 2 and 4. Across cards: phase_scaling_cards
-             (its own chip call)
+             of a model axis of 2 and 4; the protocol drivers on the (1, 1)
+             mesh, bit for bit against the 1-D mesh and no mesh:
+             run_train_device_mega (7 x 300 queries, 300 steps, evals and
+             checkpoints every 100, resumed from its first checkpoint) and
+             run_train_onthefly (300 steps), launches equal, the
+             collectives per step on each axis. Across cards:
+             phase_scaling_cards and phase_tp_driver_cards (each run on
+             its own)
   eval       AUC (one negative), hard AUC and APR of the trained parameters
              on held-out queries of the bench graph (500 2p, 500 3i, 200
              each of 2i, ip, pi; fresh seed, training queries dropped;
@@ -108,7 +114,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              falling losses; its val macro AUC and APR against the JAX CPU
              reference; SIGKILL after the first checkpoint and --resume
              through the plain CLI, bit for bit against an uninterrupted
-             run (2,000 steps); --pipeline host (float32, 3,000 steps)
+             run (1,000 steps); --pipeline host (float32, 3,000 steps)
              against its JAX CPU reference; gqe-torch-eval against
              metrics.json (1e-6)
   onthefly   gqe-torch-train --pipeline onthefly --bf16 on the protocol's
@@ -117,7 +123,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              intersection structures; 2p/3p, flat after burn-in as in JAX,
              below the untrained parameters' loss), evals at the expected
              steps, val macro AUC and APR against the JAX CPU reference;
-             SIGKILL and --resume through the plain CLI, bit for bit (2,000
+             SIGKILL and --resume through the plain CLI, bit for bit (1,000
              steps)
   deep       the depth > 0 SAGE encoder (models/encoders.py): sage_encode on
              the card against the CPU at the bench graph (depth 1 and 2,
@@ -138,7 +144,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              B=512: (a) experiments/stream_throughput.py's workload (native
              shards of the bench graph: 40,000 1p edges, 30,000 2p, 30,000
              3i) through run_train_stream, stream_window 16,384, cut from
-             30,000 to 6,000 steps (1,000 of burn-in, 21 window swaps): the
+             30,000 to 3,000 steps (600 of burn-in, 10 window swaps): the
              first window set on the card equal to its numpy arrays, exact
              launches, the swaps, the seconds waiting on the next window,
              falling losses, q/s beside run_train_device_mega on the same
@@ -146,7 +152,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              --bf16 on the protocol's data (6,000 steps, 1,500 of burn-in)
              with exact launches, the expected swaps and eval steps,
              falling losses, val macro AUC and APR within 0.03 of the JAX
-             CPU reference; SIGKILL and --resume bit for bit (2,000 steps);
+             CPU reference; SIGKILL and --resume bit for bit (1,000 steps);
              --depth 1 (360 steps); the phase's seconds
   sampler    the native C++ sampler (native/sampler.cpp) built with g++; the
              oracle bar's data of both families (bio, bio-latent: 8,000 +
@@ -162,7 +168,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
              and bio-latent: fused_adam_leaf and scatter_rows bit-exact at
              its float32 [1760,128] table; the init's SHA-256 against the
              recorded one; the host loop (12,000 float32 steps, 3,000 of
-             burn-in, d=128, B=512, bilinear/min) with exact launches,
+             burn-in, d=128, B=512, bilinear/min; the two families at
+             once, the second in a spawned process) with exact launches,
              finite parameters, falling losses; macro AUC and APR within
              0.01 of JAX CPU's on the same data from the same init, and of
              the float64 oracle's wherever JAX CPU is
@@ -993,11 +1000,12 @@ def phase_multitask(dev, card: str, work: dict):
 
 
 # The mesh phase (parallel/): the data-parallel path at one NCCL rank against
-# the unsharded path. Budgets of (c) and (d): 600 steps with 100 of burn-in,
-# 20 steps a dispatch, evals and checkpoints every 200, convergence stopping
-# off, so both runs take every step.
-MESH = {"total_steps": 600, "burn_in_steps": 100, "steps_per": 20}
-MESH_EVERY = 200
+# the unsharded path. Budgets of (c) and (d), and of phase tp_scaling's
+# driver runs: 300 steps with 100 of burn-in, 20 steps a dispatch, evals and
+# checkpoints every 100, convergence stopping off, so both runs take every
+# step.
+MESH = {"total_steps": 300, "burn_in_steps": 100, "steps_per": 20}
+MESH_EVERY = 100
 
 
 def phase_mesh(card: str, owner: bool = False) -> dict:
@@ -1010,12 +1018,12 @@ def phase_mesh(card: str, owner: bool = False) -> dict:
         batches alternating 2p and 3i: the losses, every leaf and both Adam
         moments;
     (c) run_train_device_mega(mesh=) against mesh=None on 7 × 300 queries
-        (600 steps, evals and checkpoints every 200): the loss series,
+        (300 steps, evals and checkpoints every 100): the loss series,
         val_history, the final and best parameters, the last checkpoint's
         state;
     (d) run_train_onthefly(mesh=) against mesh=None on the protocol's
-        graph (1,760 nodes, 600 steps): the same;
-    (e) a mesh run resumed from (c)'s unsharded checkpoint at step 240
+        graph (1,760 nodes, 300 steps): the same;
+    (e) a mesh run resumed from (c)'s unsharded checkpoint at step 100
         against the uninterrupted unsharded run;
     (f) launches: fused_adam_leaf once per leaf a step and scatter_rows
         once a step, the unsharded run's counts; the collectives per step;
@@ -1085,10 +1093,11 @@ def mesh_rank(mesh, owner: bool = False) -> dict:
     out["step"] = mesh_step_check(mesh, cfg, graph)
     tmp = Path(tempfile.mkdtemp(prefix="gqe-mesh-phase-"))
     try:
-        out["device_mega"] = mesh_device_check(mesh, cfg, graph, tmp)
+        out["device_mega"] = mesh_device_check({"sharded": mesh}, cfg, graph,
+                                               tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    out["onthefly"] = mesh_onthefly_check(mesh, cfg)
+    out["onthefly"] = mesh_onthefly_check({"sharded": mesh}, cfg)
     if owner:
         out["owner_gather"] = owner_rank(mesh, graph)
     return out
@@ -1168,12 +1177,18 @@ def mesh_step_check(mesh, cfg, graph) -> dict:
             "bit_for_bit": True}
 
 
-def _session(res, counts: dict, colls: dict) -> dict:
+def _session(res, counts: dict, colls: dict, model: dict | None = None) -> dict:
     steps = res.timings["session_steps"]
-    return {"steps": res.steps, "session_steps": steps,
-            "ms_per_step": 1e3 * res.timings["train_s"] / steps,
-            "val_history": res.val_history, "launches": counts,
-            "collectives": colls}
+    out = {"steps": res.steps, "session_steps": steps,
+           "ms_per_step": 1e3 * res.timings["train_s"] / steps,
+           "val_history": res.val_history, "launches": counts,
+           "collectives": colls}
+    if model is not None:
+        out["collectives_model"] = model
+        out["collectives_per_step"] = {
+            "data": {k: v / steps for k, v in colls.items()},
+            "model": {k: v / steps for k, v in model.items()}}
+    return out
 
 
 def _check_collectives(colls: dict, res, what: str):
@@ -1190,9 +1205,39 @@ def _check_collectives(colls: dict, res, what: str):
     check(colls == want, f"{what}: collectives {colls}, want {want}")
 
 
-def mesh_device_check(mesh, cfg, graph, tmp) -> dict:
-    """(c) and (e): run_train_device_mega at W=1 against unsharded, and a
-    mesh resume from the unsharded run's checkpoint."""
+def _check_model_collectives(model: dict, colls: dict, res, mesh, n_tp: int,
+                             steps_per: int, what: str):
+    """A driver's collectives on 'model': none on a 1-D mesh; on a 2-D one
+    the TP step's for each structure's session steps (TP_HOPS, the rows
+    route), and n_tp all-gathers (one per leaf split over 'model') for each
+    tree made whole: one an eval, four a checkpoint, two for the result."""
+    want = {"all_gather": 0, "all_reduce": 0}
+    if "model" in mesh.axis_names:
+        steps = {s: len(v) * steps_per for s, v in res.losses.items()}
+        check(sum(steps.values()) == res.timings["session_steps"],
+              f"{what}: steps by structure {steps}")
+        for s, n in steps.items():
+            for k, v in tp_model_counts("scan", s, n).items():
+                want[k] += v
+        want["all_gather"] += n_tp * (len(res.val_history)
+                                      + 4 * colls["barrier"] + 2)
+    check(model == want, f"{what}: 'model' collectives {model}, want {want}")
+
+
+def _n_tp_leaves(params) -> int:
+    from graphqembed_tpu_torch.models.params import tree_paths
+    from graphqembed_tpu_torch.parallel import mesh as pm
+
+    return sum(pm.model_dim(p, x.dim()) is not None for p, x in tree_paths(params))
+
+
+def mesh_device_check(meshes: dict, cfg, graph, tmp,
+                      resume_from: str = "unsharded") -> dict:
+    """(c) and (e): run_train_device_mega on each mesh of `meshes` ({name:
+    mesh}, at one rank) against mesh=None, bit for bit, with equal
+    launches; then the last mesh resumed from the first checkpoint of run
+    `resume_from` (a name of `meshes`, or the unsharded run) against the
+    uninterrupted unsharded run."""
     import shutil
 
     import torch
@@ -1210,12 +1255,11 @@ def mesh_device_check(mesh, cfg, graph, tmp) -> dict:
     )
 
     queries, val = _mesh_data(graph)
-    n_leaves = None
+    base = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+    n_leaves, n_tp = len(tree_leaves(base)), _n_tp_leaves(base)
 
     def run(mesh_arg, ckdir, resume=False):
-        nonlocal n_leaves
         params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
-        n_leaves = len(tree_leaves(params))
         data = DeviceTrainData(graph.schema, queries)
         reset_counts()
         pm.reset_collective_counts()
@@ -1224,32 +1268,42 @@ def mesh_device_check(mesh, cfg, graph, tmp) -> dict:
             ckpt_manager=CheckpointManager(ckdir, keep=3),
             ckpt_every=MESH_EVERY, resume=resume, mesh=mesh_arg, **MESH)
         torch.cuda.synchronize()
-        return res, read_counts(), pm.collective_counts()
+        return (res, read_counts(), pm.collective_counts(),
+                pm.collective_counts("model"))
 
-    u, u_n, _ = run(None, tmp / "unsharded")
-    s, s_n, s_c = run(mesh, tmp / "sharded")
-    for what, a, b in (("losses", s.losses, u.losses),
-                       ("val_history", s.val_history, u.val_history),
-                       ("params", s.params, u.params),
-                       ("best_params", s.best_params, u.best_params)):
-        _equal_trees(a, b, f"device_mega {what}")
-    check(s.steps == u.steps >= MESH["total_steps"], f"steps {s.steps} {u.steps}")
+    def mesh_checks(name, m, res, n, c, mc):
+        _leaf_launches(n, res.timings["session_steps"], n_leaves, name)
+        _check_collectives(c, res, name)
+        _check_model_collectives(mc, c, res, m, n_tp, MESH["steps_per"], name)
+
+    u, u_n, _, _ = run(None, tmp / "unsharded")
     ck_u, meta_u = load_checkpoint(latest_step_dir(tmp / "unsharded"), "cpu")
-    ck_s, meta_s = load_checkpoint(latest_step_dir(tmp / "sharded"), "cpu")
-    _equal_trees(ck_s, ck_u, "device_mega checkpoint")
-    check(meta_s == meta_u, f"checkpoint meta {meta_s} != {meta_u}")
-    check(s_n == u_n, f"device_mega launches {s_n} != unsharded {u_n}")
-    _leaf_launches(s_n, s.steps, n_leaves, "device_mega")
-    _check_collectives(s_c, s, "device_mega")
+    out = {"unsharded": _session(u, u_n, {})}
+    for name, m in meshes.items():
+        s, s_n, s_c, s_m = run(m, tmp / name)
+        for what, a, b in (("losses", s.losses, u.losses),
+                           ("val_history", s.val_history, u.val_history),
+                           ("params", s.params, u.params),
+                           ("best_params", s.best_params, u.best_params)):
+            _equal_trees(a, b, f"device_mega {name} {what}")
+        check(s.steps == u.steps >= MESH["total_steps"],
+              f"{name} steps {s.steps} {u.steps}")
+        ck_s, meta_s = load_checkpoint(latest_step_dir(tmp / name), "cpu")
+        _equal_trees(ck_s, ck_u, f"device_mega {name} checkpoint")
+        check(meta_s == meta_u, f"{name} checkpoint meta {meta_s} != {meta_u}")
+        check(s_n == u_n, f"device_mega {name} launches {s_n} != unsharded {u_n}")
+        mesh_checks(f"device_mega {name}", m, s, s_n, s_c, s_m)
+        out[name] = _session(s, s_n, s_c, s_m if "model" in m.axis_names else None)
 
-    # (e): resume the mesh run from the unsharded run's first checkpoint
-    shutil.copytree(tmp / "unsharded", tmp / "resume")
-    steps_saved = sorted(d.name for d in (tmp / "resume").iterdir()
-                         if d.name.startswith("step_"))
+    # (e): resume the last mesh from run resume_from's first checkpoint
+    shutil.copytree(tmp / resume_from, tmp / "resume")
+    steps_saved = sorted((d.name for d in (tmp / "resume").iterdir()
+                          if d.name.startswith("step_")),
+                         key=lambda d: int(d.split("_")[1]))
     check(len(steps_saved) >= 2, f"checkpoints {steps_saved}")
-    for name in steps_saved[1:]:
-        shutil.rmtree(tmp / "resume" / name)
-    r, r_n, r_c = run(mesh, tmp / "resume", resume=True)
+    for d in steps_saved[1:]:
+        shutil.rmtree(tmp / "resume" / d)
+    r, r_n, r_c, r_m = run(m, tmp / "resume", resume=True)
     k = len(r.val_history)
     check(k >= 1 and r.val_history == u.val_history[-k:],
           f"resumed val_history {r.val_history} against {u.val_history}")
@@ -1258,17 +1312,18 @@ def mesh_device_check(mesh, cfg, graph, tmp) -> dict:
                      f"resumed losses {st}")
     _equal_trees(r.params, u.params, "resumed params")
     _equal_trees(r.best_params, u.best_params, "resumed best_params")
-    _leaf_launches(r_n, r.timings["session_steps"], n_leaves, "resumed")
-    _check_collectives(r_c, r, "resumed")
-    return {"unsharded": _session(u, u_n, {}),
-            "sharded": _session(s, s_n, s_c),
-            "resumed": {"from": steps_saved[0], **_session(r, r_n, r_c)},
-            "bit_for_bit": True}
+    mesh_checks(f"resumed {name}", m, r, r_n, r_c, r_m)
+    out["resumed"] = {"mesh": name, "from": f"{resume_from}/{steps_saved[0]}",
+                      **_session(r, r_n, r_c,
+                                 r_m if "model" in m.axis_names else None)}
+    out["bit_for_bit"] = True
+    return out
 
 
-def mesh_onthefly_check(mesh, cfg) -> dict:
-    """(d): run_train_onthefly at W=1 against unsharded on the protocol's
-    graph."""
+def mesh_onthefly_check(meshes: dict, cfg) -> dict:
+    """(d): run_train_onthefly on each mesh of `meshes` ({name: mesh}, at
+    one rank) against mesh=None on the protocol's graph, bit for bit, with
+    equal launches."""
     import dataclasses as dc
 
     import numpy as np
@@ -1290,28 +1345,37 @@ def mesh_onthefly_check(mesh, cfg) -> dict:
     val = [q for s in STRUCTURES for q in sampler.sample_many(s, 50)]
     cfg = dc.replace(cfg, lr=0.03)
     dg = DeviceGraph.build(graph, sample_size=8, seed=0)
+    base = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
+    n_leaves, n_tp = len(tree_leaves(base)), _n_tp_leaves(base)
     runs = {}
-    for name, mesh_arg in (("unsharded", None), ("sharded", mesh)):
+    for name, mesh_arg in (("unsharded", None), *meshes.items()):
         params = init_params(cfg, graph.schema, torch.Generator().manual_seed(0))
-        n_leaves = len(tree_leaves(params))
         reset_counts()
         pm.reset_collective_counts()
         res = run_train_onthefly(cfg, graph.schema, params, dg,
                                  val_queries=val, mesh=mesh_arg, **MESH)
         torch.cuda.synchronize()
-        runs[name] = (res, read_counts(), pm.collective_counts())
-    (u, u_n, _), (s, s_n, s_c) = runs["unsharded"], runs["sharded"]
-    for what, a, b in (("losses", s.losses, u.losses),
-                       ("val_history", s.val_history, u.val_history),
-                       ("params", s.params, u.params),
-                       ("best_params", s.best_params, u.best_params)):
-        _equal_trees(a, b, f"onthefly {what}")
-    check(s.steps == u.steps >= MESH["total_steps"], f"steps {s.steps} {u.steps}")
-    check(s_n == u_n, f"onthefly launches {s_n} != unsharded {u_n}")
-    _leaf_launches(s_n, s.steps, n_leaves, "onthefly")
-    _check_collectives(s_c, s, "onthefly")
-    return {"unsharded": _session(u, u_n, {}), "sharded": _session(s, s_n, s_c),
-            "bit_for_bit": True}
+        runs[name] = (res, read_counts(), pm.collective_counts(),
+                      pm.collective_counts("model"))
+    u, u_n, _, _ = runs.pop("unsharded")
+    out = {"unsharded": _session(u, u_n, {})}
+    for name, (s, s_n, s_c, s_m) in runs.items():
+        m = meshes[name]
+        for what, a, b in (("losses", s.losses, u.losses),
+                           ("val_history", s.val_history, u.val_history),
+                           ("params", s.params, u.params),
+                           ("best_params", s.best_params, u.best_params)):
+            _equal_trees(a, b, f"onthefly {name} {what}")
+        check(s.steps == u.steps >= MESH["total_steps"],
+              f"{name} steps {s.steps} {u.steps}")
+        check(s_n == u_n, f"onthefly {name} launches {s_n} != unsharded {u_n}")
+        _leaf_launches(s_n, s.steps, n_leaves, f"onthefly {name}")
+        _check_collectives(s_c, s, f"onthefly {name}")
+        _check_model_collectives(s_m, s_c, s, m, n_tp, MESH["steps_per"],
+                                 f"onthefly {name}")
+        out[name] = _session(s, s_n, s_c, s_m if "model" in m.axis_names else None)
+    out["bit_for_bit"] = True
+    return out
 
 
 # The mesh across the cards of one host (its own chip call with four cards;
@@ -2069,7 +2133,15 @@ def phase_tp_scaling(dev, card: str) -> dict:
     (d) entry.dryrun_multichip(1);
     (e) fused_adam_leaf bit for bit against its plain version at the TP
         shards' shapes of a model axis of 2 and 4, timed beside the plain
-        version, torch._fused_adam_ and the bound."""
+        version, torch._fused_adam_ and the bound;
+    (f) in the child, the protocol drivers on the (1, 1) mesh and on the
+        1-D mesh of one rank, each bit for bit against no mesh (losses,
+        val_history, final and best parameters, the checkpoints), launches
+        equal: run_train_device_mega on the bench graph's 7 × 300 queries
+        (MESH: 300 steps, evals and checkpoints every 100), then the (1, 1)
+        run resumed from its own first checkpoint against the uninterrupted
+        run; run_train_onthefly on the protocol's graph (300 steps); the
+        collectives per step on 'data' and on 'model'."""
     import torch
 
     from graphqembed_tpu_torch.entry import dryrun_multichip
@@ -2196,6 +2268,10 @@ def _scan_ms(run: dict, pools, cfg, dev) -> float:
 def tp_rank(mesh) -> dict:
     """The child of phase_tp_scaling: rank 0 of a one-rank NCCL world,
     holding the 1-D mesh it was given and the (1, 1) mesh."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2263,11 +2339,23 @@ def tp_rank(mesh) -> dict:
     for name in ("unsharded", "mesh_1d", "mesh_11", "mesh_11", "mesh_1d",
                  "unsharded"):
         ms[name].append(_scan_ms(runs[name], pools, cfg, dev))
+    # (f): the protocol drivers on the (1, 1) mesh, beside the 1-D mesh
+    meshes = {"mesh_1d": mesh, "mesh_11": m11}
+    dcfg = dataclasses.replace(cfg, val_every=MESH_EVERY, tol=-1e9)
+    tmp = Path(tempfile.mkdtemp(prefix="gqe-tp-drivers-"))
+    t0 = time.perf_counter()
+    try:
+        drivers = {"device_mega": mesh_device_check(
+            meshes, dcfg, graph, tmp, resume_from="mesh_11")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    drivers["onthefly"] = mesh_onthefly_check(meshes, dcfg)
+    drivers["seconds"] = time.perf_counter() - t0
     return {"backend": "nccl", "torch": torch.__version__,
             "losses": [float(v) for v in u["losses"]], "bit_for_bit": True,
             "launches": runs["mesh_11"]["launches"],
             "collectives_mesh_11": runs["mesh_11"]["collectives"],
-            "scan_ms_per_step": ms}
+            "scan_ms_per_step": ms, "drivers": drivers}
 
 
 # the TP shards' shapes of the bench model (R = 12 relations, I = 5
@@ -2308,7 +2396,7 @@ def _whole_params(params, mesh, n_rows: int) -> dict:
     from graphqembed_tpu_torch.parallel import mesh as pm
 
     if mesh is not None:
-        params = pm.unshard_tree(pm.unshard_model(params, mesh), mesh, n_rows)
+        params = pm.unshard_tree(params, mesh, n_rows)
     return {p: x.detach().to("cpu", copy=True) for p, x in tree_paths(params)}
 
 
@@ -2444,6 +2532,240 @@ def phase_scaling_cards(n: int = 4) -> dict:
     one = _tp_cards_runs(None, torch.device("cuda", 0))["one"]
     out["tp"] = {name: _close_tp(r, one, name) for name, r in meshed.items()}
     out["dryrun"] = dryrun_multichip(n)
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return out
+
+
+# The protocol drivers on a ('data', 'model') mesh across the cards of one
+# host (run on its own, phase_tp_driver_cards): MESH_CARDS budgets,
+# evals and checkpoints every 100 steps. run_train_device_mega is held to
+# JAX's tests/test_sharded_trainer.py tolerances for its driver on a mesh;
+# run_train_onthefly to the same test's onthefly tolerances (MESH_CARDS_TOL:
+# a hinge flipped by a last-bit difference moves a B-row mean by ~1/B).
+TP_DRIVER_TOL = {"loss_rtol": 5e-3, "loss_atol": 1e-4, "auc": 0.02,
+                 "table_rtol": 5e-3, "table_atol": 5e-4}
+TP_DRIVER_EVERY = {"val": 100, "ckpt": 50}
+
+
+def _tp_driver_runs(mesh, tmp) -> dict:
+    """phase_tp_driver_cards's runs in this process (mesh None: one process
+    on cuda:0; else a rank of the n-rank 1-D mesh, which also makes the
+    (n/2, 2) mesh): run_train_device_mega on the bench graph's 7 × 300
+    queries (checkpoints into tmp/<run>) and run_train_onthefly on the
+    protocol's graph, float32, d=128, B=512, on the (n/2, 2) mesh or in
+    one process; then the (n/2, 2) run's earliest kept checkpoint (tmp/2d,
+    step 120 of 260) resumed on the 1-D mesh of n, or in one process. Every rank checks its own
+    launches and the collectives on each axis; rank 0's runs come back."""
+    import dataclasses as dc
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.config import STRUCTURES, GQEConfig
+    from graphqembed_tpu_torch.data.sampling import QuerySampler
+    from graphqembed_tpu_torch.graph.synthetic import (
+        synthetic_graph,
+        synthetic_graph_latent,
+    )
+    from graphqembed_tpu_torch.models.params import init_params, tree_leaves, tree_paths
+    from graphqembed_tpu_torch.parallel import mesh as pm
+    from graphqembed_tpu_torch.training.checkpoint import CheckpointManager
+    from graphqembed_tpu_torch.training.device_data import (
+        DeviceTrainData,
+        run_train_device_mega,
+    )
+    from graphqembed_tpu_torch.training.device_sampler import (
+        DeviceGraph,
+        run_train_onthefly,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(tmp)
+    m2d = None if mesh is None else pm.make_mesh_2d(mesh.size // 2, 2)
+    cfg = GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
+                    batch_size=512, lr=0.01, val_every=TP_DRIVER_EVERY["val"],
+                    tol=-1e9)
+    bench = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
+    queries, val = _mesh_data(bench)
+    latent = synthetic_graph_latent(seed=0, scale=2.0, avg_degree=8.0)
+    lval = [q for s in STRUCTURES for q in QuerySampler(
+        latent, np.random.default_rng(0), max_negs=50).sample_many(s, 50)]
+
+    def run(name, m, ckdir=None, resume=False):
+        onthefly = name == "onthefly"
+        graph = latent if onthefly else bench
+        c = dc.replace(cfg, lr=0.03) if onthefly else cfg
+        params = init_params(c, graph.schema, torch.Generator().manual_seed(0))
+        n_leaves, n_tp = len(tree_leaves(params)), _n_tp_leaves(params)
+        reset_counts()
+        pm.reset_collective_counts()
+        if onthefly:
+            res = run_train_onthefly(
+                c, graph.schema, params, DeviceGraph.build(graph, sample_size=8),
+                val_queries=lval, mesh=m, **MESH_CARDS)
+        else:
+            res = run_train_device_mega(
+                c, graph.schema, params, DeviceTrainData(graph.schema, queries),
+                val_queries=val, mesh=m, ckpt_manager=CheckpointManager(ckdir),
+                ckpt_every=TP_DRIVER_EVERY["ckpt"], resume=resume,
+                **MESH_CARDS)
+        torch.cuda.synchronize()
+        counts, colls = read_counts(), pm.collective_counts()
+        model = pm.collective_counts("model")
+        steps = res.timings["session_steps"]
+        _leaf_launches(counts, steps, n_leaves, name)
+        if m is not None:
+            evals, saves = len(res.val_history), colls["barrier"]
+            # placing fresh parameters broadcasts the replicated leaves
+            want = {"all_gather": steps + evals + 4 * saves + 2,
+                    "reduce_scatter": steps, "all_reduce": steps,
+                    "all_to_all": 0, "broadcast": evals + n_leaves - 1,
+                    "barrier": saves}
+            check(colls == want, f"{name}: collectives {colls}, want {want}")
+            _check_model_collectives(model, colls, res, m, n_tp,
+                                     MESH_CARDS["steps_per"], name)
+        whole = {p: x.detach().cpu() for p, x in tree_paths(res.params)}
+        d = c.embed_dim
+        check(whole["table"].shape == (graph.schema.n_nodes, d)
+              and whole["proj/W"].shape[1:] == (d, d),
+              f"{name}: result {whole['table'].shape} {whole['proj/W'].shape}")
+        return {"session": _session(res, counts, colls,
+                                    None if m is None else model),
+                "losses": res.losses, "val_history": res.val_history,
+                "params": whole, "qps": res.queries_per_sec}
+
+    def first_checkpoint(src, dst):
+        if mesh is None or mesh.rank == 0:
+            shutil.copytree(src, dst)
+            saved = sorted((d for d in dst.iterdir()
+                            if d.name.startswith("step_")),
+                           key=lambda d: int(d.name.split("_")[1]))
+            check(len(saved) >= 2, f"checkpoints {saved}")
+            for d in saved[1:]:
+                shutil.rmtree(d)
+        if mesh is not None:
+            pm.barrier(mesh)
+
+    if mesh is None:
+        out = {"device_mega": run("device_mega", None, tmp / "one"),
+               "onthefly": run("onthefly", None)}
+        first_checkpoint(tmp / "2d", tmp / "2d_to_one")
+        out["2d_to_one"] = run("device_mega", None, tmp / "2d_to_one", True)
+        return out
+    shape = "x".join(map(str, m2d.shape))
+    out = {"shape": shape, "device_mega": run("device_mega", m2d, tmp / "2d"),
+           "onthefly": run("onthefly", m2d)}
+    first_checkpoint(tmp / "2d", tmp / "2d_to_1d")
+    out["2d_to_1d"] = run("device_mega", mesh, tmp / "2d_to_1d", True)
+    return out
+
+
+def tp_driver_cards_rank(mesh, tmp) -> dict:
+    """One rank of phase_tp_driver_cards."""
+    return _tp_driver_runs(mesh, tmp)
+
+
+def _close_driver(m: dict, one: dict, what: str, tol=TP_DRIVER_TOL) -> dict:
+    """Run m against run one: the same steps; m's evals at one's last eval
+    steps, each AUC within tol; m's loss series against the tail of one's
+    (a resumed run's are its session's) and the whole, unpadded tables
+    within tol: elementwise (rtol, atol), or in aggregate where tol is
+    MESH_CARDS_TOL (the onthefly driver)."""
+    import numpy as np
+
+    check(m["session"]["steps"] == one["session"]["steps"],
+          f"{what}: steps {m['session']['steps']} {one['session']['steps']}")
+    k = len(m["val_history"])
+    tail = one["val_history"][len(one["val_history"]) - k:]
+    check(k >= 1 and [s for s, _ in m["val_history"]] == [s for s, _ in tail],
+          f"{what}: evals {m['val_history']} against {one['val_history']}")
+    auc = max(abs(a - b) for (_, a), (_, b) in zip(m["val_history"], tail))
+    check(auc <= tol["auc"], f"{what}: val AUC differs by {auc}")
+    strict = "table_rtol" in tol
+    loss_excess = -np.inf
+    for s, vs in m["losses"].items():
+        a = np.asarray(vs)
+        b = np.asarray(one["losses"][s])[len(one["losses"][s]) - len(a):]
+        if len(a):
+            lim = (tol["loss_atol"] + tol["loss_rtol"] * np.abs(b) if strict
+                   else tol["loss_rtol"] * np.abs(b))
+            loss_excess = max(loss_excess, float(np.max(np.abs(a - b) - lim)))
+    check(loss_excess <= 0, f"{what}: losses beyond {tol} by {loss_excess}")
+    a, b = m["params"]["table"], one["params"]["table"]
+    check(a.shape == b.shape, f"{what}: tables {tuple(a.shape)} {tuple(b.shape)}")
+    diff = (a - b).abs()
+    out = {"steps": m["session"]["steps"], "val_history": m["val_history"],
+           "val_history_one": tail, "max_auc_diff": auc,
+           "loss_excess_over_tol": loss_excess,
+           "table_max_abs_diff": float(diff.max()),
+           "table_mean_abs_diff": float(diff.mean()),
+           "ms_per_step": m["session"]["ms_per_step"],
+           "ms_per_step_one": one["session"]["ms_per_step"],
+           "qps": m["qps"], "qps_one": one["qps"],
+           "launches_rank0": m["session"]["launches"],
+           "collectives_rank0": m["session"]["collectives"],
+           "collectives_model_rank0": m["session"].get("collectives_model")}
+    if strict:
+        excess = float((diff - (tol["table_atol"]
+                                + tol["table_rtol"] * b.abs())).max())
+        check(excess <= 0, f"{what}: table beyond {tol} by {excess}")
+        out["table_excess_over_tol"] = excess
+    else:
+        far = float((diff > tol["table_far"]).float().mean())
+        check(out["table_mean_abs_diff"] < tol["table_mean"]
+              and far < tol["table_far_share"],
+              f"{what}: table mean |diff| {out['table_mean_abs_diff']}, "
+              f"share > {tol['table_far']}: {far}")
+        out["table_share_far"] = far
+    return out
+
+
+def phase_tp_driver_cards(n: int = 4) -> dict:
+    """The protocol drivers on a ('data', 'model') mesh across n cards of
+    this host (NCCL, rank r on cuda:r), run on its own:
+    `python3 -c "import chip_smoke as c; c.phase_build();
+    c.phase_tp_driver_cards(4)"`. spawn_on_mesh(tp_driver_cards_rank, n)
+    trains run_train_device_mega (the bench graph's 7 × 300 queries, 200
+    steps, evals every 100, checkpoints every 50) and run_train_onthefly (the
+    protocol's graph, 200 steps) on the (n/2, 2) mesh, float32, d=128,
+    B=512, then resumes the (n/2, 2) run's earliest kept checkpoint on the
+    1-D mesh of n; this process trains both on cuda:0 without a mesh and
+    resumes the same checkpoint. Held against the one-process runs: the device
+    driver and both resumed runs within TP_DRIVER_TOL (JAX's
+    tests/test_sharded_trainer.py), the onthefly driver within
+    MESH_CARDS_TOL; every rank's launches and collectives on both axes
+    exact. Prints one JSON line and returns it."""
+    import tempfile
+
+    import torch
+
+    from graphqembed_tpu_torch.parallel import spawn_on_mesh
+
+    check(torch.cuda.device_count() >= n and n % 2 == 0,
+          f"{n} cards wanted (even), {torch.cuda.device_count()} visible")
+    card = card_name_and_power()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="gqe-tp-driver-cards-") as tmp:
+        meshed = spawn_on_mesh(tp_driver_cards_rank, n, tmp, device="cuda",
+                               timeout=900)
+        mesh_s = time.perf_counter() - t0
+        one = _tp_driver_runs(None, tmp)
+    shape = meshed.pop("shape")
+    out = {"phase": "tp_driver_cards", "card": card, "cards": n,
+           "shape": shape, "mesh_s": mesh_s, "tolerance": TP_DRIVER_TOL,
+           "tolerance_onthefly": MESH_CARDS_TOL,
+           "device_mega": _close_driver(meshed["device_mega"],
+                                        one["device_mega"], f"{shape} device_mega"),
+           "onthefly": _close_driver(meshed["onthefly"], one["onthefly"],
+                                     f"{shape} onthefly", MESH_CARDS_TOL),
+           "2d_to_1d": _close_driver(meshed["2d_to_1d"], one["device_mega"],
+                                     f"{shape} checkpoint on the 1-D mesh"),
+           "2d_to_one": _close_driver(one["2d_to_one"], one["device_mega"],
+                                      f"{shape} checkpoint in one process")}
     out["seconds"] = time.perf_counter() - t0
     emit(out)
     return out
@@ -2607,10 +2929,11 @@ PROTOCOL_FLAGS = ["--pipeline", "device", "--bf16", "--lr", "0.03",
 HOST_FLAGS = ["--pipeline", "host", "--lr", "0.03", "--tol=-1e9", "--seed", "0"]
 HEADLINE = {"max_iter": 12000, "max_burn_in": 3000, "val_every": 3000,
             "ckpt_every": 3000}
-# the kill/resume runs are cut from 3,000 to 2,000 steps to keep the phase
-# near four minutes (two subprocesses and an uninterrupted run)
-RESUME = {"max_iter": 2000, "max_burn_in": 600, "val_every": 1000,
-          "ckpt_every": 500}
+# the kill/resume runs (two subprocesses and an uninterrupted run, an
+# internal bit-for-bit comparison) are cut from 3,000 to 1,000 steps, the
+# deep phase's budget, to keep the whole script near 1,000 s
+RESUME = {"max_iter": 1000, "max_burn_in": 300, "val_every": 500,
+          "ckpt_every": 250}
 HOST = {"max_iter": 3000, "max_burn_in": 1000, "val_every": 1000}
 
 
@@ -2647,8 +2970,6 @@ CLI = ["-m", "graphqembed_tpu_torch.cli.train"]
 DEEP_FLAGS = PROTOCOL_FLAGS + ["--depth", "1", "--aggregator", "mean"]
 DEEP = {"max_iter": 6000, "max_burn_in": 1500, "val_every": 1500,
         "ckpt_every": 1500}
-DEEP_RESUME = {"max_iter": 1000, "max_burn_in": 300, "val_every": 500,
-               "ckpt_every": 250}
 DEEP_SHORT = {"max_iter": 360, "max_burn_in": 120, "val_every": 120}
 # JAX CPU reference of the deep headline run, as the protocol's:
 #   JAX_PLATFORMS=cpu python -m graphqembed_tpu.cli.train --data_dir D \
@@ -2670,8 +2991,8 @@ DEEP_ENCODER_TOL = {"out_atol": 1e-5, "grad_rtol": 1e-4, "grad_atol_of_max": 1e-
 # through run_train_stream: the bench graph, native shards of all its 1p
 # edges (capped at 40,000), 30,000 2p and 30,000 3i queries; bf16, d = 128,
 # B = 512, stream_window 16,384, reuse 2.0, 100 steps a dispatch; cut from
-# 30,000 steps with 5,000 of burn-in to 6,000 with 1,000 (21 window swaps).
-STREAM_CELL = {"total_steps": 6000, "burn_in_steps": 1000, "steps_per": 100}
+# 30,000 steps with 5,000 of burn-in to 3,000 with 600 (10 window swaps).
+STREAM_CELL = {"total_steps": 3000, "burn_in_steps": 600, "steps_per": 100}
 # (b) gqe-torch-train --pipeline stream on the protocol's data (50 steps a
 # dispatch, the CLI's), its quality held within QUALITY_TOL of the JAX CLI
 # on a CPU with the same data and flags:
@@ -3286,7 +3607,7 @@ def phase_deep(dev, card: str, data, work: dict) -> dict:
     = 2: one gather per level over every id of the batch), finite
     parameters, falling losses and val macro AUC and APR against
     JAX_CPU_DEEP; (3) SIGKILL and --resume through the plain CLI at
-    DEEP_RESUME, bit for bit; (4) --pipeline onthefly --bf16 --depth 1 and
+    RESUME, bit for bit; (4) --pipeline onthefly --bf16 --depth 1 and
     --pipeline host --depth 1 --aggregator pool (float32) at DEEP_SHORT,
     with their launches, finite, falling, evaluated; (5) depth 2 with the
     pool aggregator at the bench workload (bf16, d = 128, B = 512): 20
@@ -3377,7 +3698,7 @@ def phase_deep(dev, card: str, data, work: dict) -> dict:
           "tolerance": QUALITY_TOL})
 
     # 3. SIGKILL and --resume through the plain CLI
-    out["resume"] = kill_and_resume(tmp, "deep", base + cli_flags(DEEP_FLAGS, DEEP_RESUME))
+    out["resume"] = kill_and_resume(tmp, "deep", base + cli_flags(DEEP_FLAGS, RESUME))
     emit({"phase": "deep", "step": "resume", **out["resume"]})
 
     # 4. onthefly (bf16) and host (float32, pool) at depth 1, short
@@ -3970,6 +4291,72 @@ def check_oracle_kernels(dev, gen) -> dict:
     return out
 
 
+def _oracle_family(ds: str, graph, train, val, card: str) -> dict:
+    """One family of phase_oracle_parity on cuda:0, in this process or a
+    spawned one: the init's digest, the host loop with the counts set to 0
+    just before it, its launches, finite parameters and falling losses
+    checked here; returns the summary, whose gates the caller checks."""
+    import numpy as np
+    import torch
+
+    from graphqembed_tpu_torch.data.queries import STRUCT_SHAPE
+    from graphqembed_tpu_torch.experiments import oracle_parity as op
+    from graphqembed_tpu_torch.models.params import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    ref = ORACLE_BAR[ds]
+    cfg = op.bar_config()
+    p0 = op.bar_init(cfg, graph.schema)
+    init_sha = op.params_sha256(tree_map(lambda x: x.detach().numpy(), p0))
+    check(init_sha == ref["init_sha256"],
+          f"{ds}: init sha256 {init_sha}, recorded {ref['init_sha256']} "
+          f"(torch {torch.__version__})")
+    params = op.to_device(p0, dev)
+    reset_counts()
+    w0 = time.perf_counter()
+    report, res = op.run_bar(cfg, graph.schema, params, train, val, dev)
+    wall = time.perf_counter() - w0
+    launches = read_counts()
+    steps = report["steps"]
+    check(steps == cfg.max_iter and report["burn_in_steps"] == cfg.max_burn_in,
+          f"{ds}: {steps} steps, {report['burn_in_steps']} of burn-in")
+    gathers = sum(k * (STRUCT_SHAPE[s][0] + 2)
+                  for s, k in report["steps_by_structure"].items())
+    want = want_counts(fused_adam_leaf=4 * steps, scatter_rows=gathers)
+    check(launches == want and report["launches"] == want,
+          f"{ds}: launches {launches} (training {report['launches']}), want {want}")
+    check_params_finite(res.best_params, res)
+    burn = res.losses["1p"][:res.burn_in_steps]
+    check(all(np.isfinite(v) for vs in res.losses.values() for v in vs)
+          and fell(burn, 100), f"{ds}: losses not finite or burn-in not falling")
+    windows = {s: [float(np.mean(v[:100])), float(np.mean(v[-100:]))]
+               for s, v in res.losses.items()}
+    for s, (first, last) in ref["jax_cpu"]["loss_windows"].items():
+        if last < first:
+            check(windows[s][1] < windows[s][0],
+                  f"{ds}: {s} loss fell in the JAX CPU run, not here: {windows[s]}")
+    gates = {}
+    for m in ("auc", "apr"):
+        port = report[m]["macro"]
+        jax_m, oracle_m = ref["jax_cpu"][m]["macro"], ref["oracle"][m]["macro"]
+        gates[m] = {"port": port, "jax_cpu": jax_m, "oracle": oracle_m,
+                    "port_minus_jax": port - jax_m,
+                    "port_minus_oracle": port - oracle_m,
+                    "jax_minus_oracle": jax_m - oracle_m}
+    return {
+        "dataset": ds, "card": card, "wall_s": wall, "train_s": report["train_s"],
+        "ms_per_step": 1e3 * report["train_s"] / steps,
+        "queries_per_sec": steps * cfg.batch_size / report["train_s"],
+        "steps": steps, "burn_in_steps": report["burn_in_steps"],
+        "launches": launches, "val_history": res.val_history,
+        "loss_windows": windows, "gates": gates, "tolerance": ORACLE_TOL,
+        **{m: report[m] for m in ("auc", "apr", "hard_auc")},
+        "jax_cpu": {m: ref["jax_cpu"][m] for m in ("auc", "apr", "hard_auc")},
+        "oracle": {m: ref["oracle"][m] for m in ("auc", "apr", "hard_auc")}}
+
+
 def phase_oracle_parity(dev, card: str, bar: dict) -> dict:
     """The oracle-parity bar on the card for bio and bio-latent: the init's
     digest against the recorded one, the host loop (12,000 float32 steps at
@@ -3978,69 +4365,29 @@ def phase_oracle_parity(dev, card: str, bar: dict) -> dict:
     scatter_rows once per table gather: anchors + 2 per step), finite
     parameters, a falling burn-in loss, a falling loss for each structure
     whose loss falls in the JAX CPU run, and the gates of ORACLE_TOL on
-    macro AUC and APR against JAX CPU and the oracle."""
-    import numpy as np
-    import torch
+    macro AUC and APR against JAX CPU and the oracle. The host loop leaves
+    the card idle most of the time, so the second family trains at the
+    same time in a spawned process on the same card (`_oracle_family`):
+    the runs are deterministic, and only their seconds feel each other."""
+    import multiprocessing
 
-    from graphqembed_tpu_torch.data.queries import STRUCT_SHAPE
-    from graphqembed_tpu_torch.experiments import oracle_parity as op
-    from graphqembed_tpu_torch.models.params import tree_map
+    import torch
 
     kern = check_oracle_kernels(dev, torch.Generator().manual_seed(8))
     emit({"phase": "oracle_parity", "step": "kernels", "card": card, **kern})
+    (first, data), *rest = bar.items()
+    with multiprocessing.get_context("spawn").Pool(len(rest)) as pool:
+        later = [(ds, pool.apply_async(_oracle_family, (ds, *d, card)))
+                 for ds, d in rest]
+        summaries = [_oracle_family(first, *data, card)]
+        # a child that dies leaves its result unset: bound the wait
+        summaries += [r.get(timeout=900) for _, r in later]
     runs = {}
-    for ds, (graph, train, val) in bar.items():
-        ref = ORACLE_BAR[ds]
-        cfg = op.bar_config()
-        p0 = op.bar_init(cfg, graph.schema)
-        init_sha = op.params_sha256(tree_map(lambda x: x.detach().numpy(), p0))
-        check(init_sha == ref["init_sha256"],
-              f"{ds}: init sha256 {init_sha}, recorded {ref['init_sha256']} "
-              f"(torch {torch.__version__})")
-        params = op.to_device(p0, dev)
-        reset_counts()
-        w0 = time.perf_counter()
-        report, res = op.run_bar(cfg, graph.schema, params, train, val, dev)
-        wall = time.perf_counter() - w0
-        launches = read_counts()
-        steps = report["steps"]
-        check(steps == cfg.max_iter and report["burn_in_steps"] == cfg.max_burn_in,
-              f"{ds}: {steps} steps, {report['burn_in_steps']} of burn-in")
-        gathers = sum(k * (STRUCT_SHAPE[s][0] + 2)
-                      for s, k in report["steps_by_structure"].items())
-        want = want_counts(fused_adam_leaf=4 * steps, scatter_rows=gathers)
-        check(launches == want and report["launches"] == want,
-              f"{ds}: launches {launches} (training {report['launches']}), want {want}")
-        check_params_finite(res.best_params, res)
-        burn = res.losses["1p"][:res.burn_in_steps]
-        check(all(np.isfinite(v) for vs in res.losses.values() for v in vs)
-              and fell(burn, 100), f"{ds}: losses not finite or burn-in not falling")
-        windows = {s: [float(np.mean(v[:100])), float(np.mean(v[-100:]))]
-                   for s, v in res.losses.items()}
-        for s, (first, last) in ref["jax_cpu"]["loss_windows"].items():
-            if last < first:
-                check(windows[s][1] < windows[s][0],
-                      f"{ds}: {s} loss fell in the JAX CPU run, not here: {windows[s]}")
-        gates = {}
-        for m in ("auc", "apr"):
-            port = report[m]["macro"]
-            jax_m, oracle_m = ref["jax_cpu"][m]["macro"], ref["oracle"][m]["macro"]
-            gates[m] = {"port": port, "jax_cpu": jax_m, "oracle": oracle_m,
-                        "port_minus_jax": port - jax_m,
-                        "port_minus_oracle": port - oracle_m,
-                        "jax_minus_oracle": jax_m - oracle_m}
-        summary = {
-            "dataset": ds, "card": card, "wall_s": wall, "train_s": report["train_s"],
-            "ms_per_step": 1e3 * report["train_s"] / steps,
-            "queries_per_sec": steps * cfg.batch_size / report["train_s"],
-            "steps": steps, "burn_in_steps": report["burn_in_steps"],
-            "launches": launches, "val_history": res.val_history,
-            "loss_windows": windows, "gates": gates, "tolerance": ORACLE_TOL,
-            **{m: report[m] for m in ("auc", "apr", "hard_auc")},
-            "jax_cpu": {m: ref["jax_cpu"][m] for m in ("auc", "apr", "hard_auc")},
-            "oracle": {m: ref["oracle"][m] for m in ("auc", "apr", "hard_auc")}}
-        emit({"phase": "oracle_parity", "step": ds, **summary})
-        for m, gt in gates.items():
+    for summary in summaries:
+        ds = summary["dataset"]
+        emit({"phase": "oracle_parity", "step": ds, "concurrent": True,
+              **summary})
+        for m, gt in summary["gates"].items():
             check(abs(gt["port_minus_jax"]) <= ORACLE_TOL,
                   f"{ds}: macro {m} {gt['port']} not within {ORACLE_TOL} of "
                   f"JAX CPU's {gt['jax_cpu']}")

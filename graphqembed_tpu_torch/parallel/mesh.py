@@ -18,9 +18,9 @@ on the CPU.
   the last dim over 'model' (`table_sharding`, `replicated`,
   `batch_sharding`, `param_shardings`);
 - `pad_table_rows`, `shard_params`, `gather_table`, `shard_tree` /
-  `unshard_tree` (checkpoints hold whole, unpadded arrays),
-  `unshard_model` (TP leaves made whole) and `mesh_consistent` place
-  parameters and state;
+  `unshard_tree` (checkpoints hold whole, unpadded arrays: tables and, on
+  a 2-D mesh, the TP blocks), `unshard_model` (TP leaves made whole) and
+  `mesh_consistent` place parameters and state;
 - `spawn_on_mesh(fn, n, *args)` starts n ranks on this host and returns
   rank 0's result: the launcher that stands for JAX's one process owning
   n devices.
@@ -314,10 +314,21 @@ def shard_params(params: dict, mesh: Mesh) -> dict:
 
 def is_sharded(params: dict, mesh: Mesh, n_rows: int) -> bool:
     """Whether params["table"] is a shard of an n_rows table on `mesh`
-    placed on its device (at one rank the whole table is its shard)."""
+    placed on its device (at one rank the whole table is its shard), and,
+    on a mesh with a 'model' axis, every leaf split over 'model' a block of
+    it (its model dim d / n_model wide, d the table's width)."""
     t = params["table"]
     per = shard_rows(n_rows, mesh.size) * mesh.size // mesh.n_data
-    return t.shape[0] == per and t.device == mesh.device
+    if t.shape[0] != per or t.device != mesh.device:
+        return False
+    if MODEL not in mesh.axis_names:
+        return True
+    block = t.shape[1] // mesh.shape[1]
+    for path, x in tree_paths(params):
+        dim = model_dim(path, x.dim())
+        if dim is not None and x.shape[dim] != block:
+            return False
+    return True
 
 
 def _collective(name: str, fn, *args, axis: str = AXIS, **kw):
@@ -427,27 +438,44 @@ def barrier(mesh: Mesh) -> None:
     _collective("barrier", dist.barrier, group=mesh.group)
 
 
-def _map_tables(fn, tree):
-    """Apply fn to the "table" entry of every dict in a tree of dicts,
-    tuples and lists (parameters, Adam's (mu, nu, count), a driver's
-    state); other leaves are kept."""
+def _map_leaves(fn, tree):
+    """Every params-shaped dict (one with a "table" tensor) of a tree of
+    dicts, tuples and lists (parameters, Adam's (mu, nu, count), a driver's
+    state) rebuilt with each leaf x at path p as fn(p, x); other leaves
+    are kept."""
     if isinstance(tree, dict):
-        return {k: fn(v) if k == "table" and isinstance(v, torch.Tensor)
-                else _map_tables(fn, v) for k, v in tree.items()}
+        if isinstance(tree.get("table"), torch.Tensor):
+            return _unflatten((p, fn(p, x)) for p, x in tree_paths(tree))
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map_tables(fn, v) for v in tree)
+        return type(tree)(_map_leaves(fn, v) for v in tree)
     return tree
+
+
+def _whole_block(path: str, x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A leaf split over 'model' gathered whole from the model ranks of
+    this rank's data row (a collective); any other leaf as it is."""
+    dim = model_dim(path, x.dim()) if MODEL in mesh.axis_names else None
+    if dim is None:
+        return x
+    parts = all_gather_model(x, mesh.model_group, mesh.shape[1])
+    return torch.cat(parts.unbind(0), dim=dim)
 
 
 def unshard_tree(tree, mesh: Mesh, n_rows: int):
     """Every table of a state tree gathered and cut to its n_rows real
-    rows (the whole, unpadded arrays a checkpoint holds); a collective:
-    every rank calls it."""
-    def whole(t):
-        return gather_table(t, mesh, n_rows).clone().requires_grad_(
-            t.requires_grad)
+    rows, and on a mesh with a 'model' axis every leaf split over 'model'
+    gathered whole, parameters and Adam's moments alike: the whole,
+    unpadded arrays a checkpoint holds. A collective: every rank calls
+    it."""
+    def whole(path, x):
+        if path == "table":
+            return gather_table(x, mesh, n_rows).clone().requires_grad_(
+                x.requires_grad)
+        out = _whole_block(path, x, mesh)
+        return x if out is x else out.requires_grad_(x.requires_grad)
 
-    return _map_tables(whole, tree)
+    return _map_leaves(whole, tree)
 
 
 def unshard_model(tree: dict, mesh: Mesh) -> dict:
@@ -458,22 +486,28 @@ def unshard_model(tree: dict, mesh: Mesh) -> dict:
     itself. A collective: every rank calls it."""
     if MODEL not in mesh.axis_names:
         return tree
-
-    def whole(path, x):
-        dim = model_dim(path, x.dim())
-        if dim is None:
-            return x
-        parts = all_gather_model(x, mesh.model_group, mesh.shape[1])
-        return torch.cat(parts.unbind(0), dim=dim)
-
-    return _unflatten((p, whole(p, x)) for p, x in tree_paths(tree))
+    return _unflatten((p, _whole_block(p, x, mesh)) for p, x in tree_paths(tree))
 
 
 def shard_tree(tree, mesh: Mesh):
     """Every table of a state tree of whole tables (a checkpoint of any
-    mesh size, or of an unsharded run) cut to this rank's padded rows;
-    other leaves are kept. Local: every rank read the same state."""
-    return _map_tables(lambda t: _own_rows(t, mesh), tree)
+    mesh size, or of an unsharded run) cut to this rank's padded rows, and
+    on a mesh with a 'model' axis every leaf that param_shardings splits
+    over 'model' cut to this rank's block (Adam's moments as their
+    parameters); other leaves are kept. Local: every rank read the same
+    state."""
+    tp = MODEL in mesh.axis_names
+
+    def cut(path, x):
+        if path == "table":
+            return _own_rows(x, mesh)
+        dim = model_dim(path, x.dim()) if tp else None
+        if dim is None:
+            return x
+        return _model_block(x.detach().to(mesh.device), dim,
+                            mesh).requires_grad_(x.requires_grad)
+
+    return _map_leaves(cut, tree)
 
 
 def mesh_consistent(tree, mesh: Mesh):

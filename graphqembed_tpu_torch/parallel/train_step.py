@@ -46,7 +46,6 @@ from graphqembed_tpu_torch.models import gqe
 from graphqembed_tpu_torch.models.encoders import deep_tables, make_deep_encoder
 from graphqembed_tpu_torch.models.params import tree_paths
 from graphqembed_tpu_torch.parallel.mesh import (
-    MODEL,
     Mesh,
     all_reduce_sum,
     gather_table,
@@ -247,35 +246,33 @@ def make_sharded_scan_train_step(cfg: GQEConfig, optimizer, mesh: Mesh,
 
 class MeshRun:
     """What a protocol driver (run_train_device_mega, run_train_onthefly)
-    does differently on a mesh; with mesh None every method is the
-    unsharded driver's own step.
+    does differently on a mesh, 1-D ('data') or 2-D ('data', 'model');
+    with mesh None every method is the unsharded driver's own step.
 
-    - params: sharded here unless they are already (`place`);
+    - params: sharded here unless they are already (`place`): the table's
+      rows over 'data' and, on a 2-D mesh, the rank's block of each leaf
+      split over 'model' (parallel/mesh.py::param_shardings);
     - checkpoints hold whole, unpadded arrays: every table of the state
       (params, Adam's moments, the best params) gathered and cut to the
-      graph's n_nodes rows, written by rank 0 in the unsharded driver's
-      files, then a barrier; on resume every rank reads them and keeps its
-      padded rows, so a checkpoint restores at any mesh size, 1 and
-      unsharded included (`save`, `restore`);
-    - eval: rank 0 evaluates the gathered table and broadcasts the macro
-      AUC, so the best-params and convergence decisions agree (`val_macro`);
-    - results come back gathered and unpadded (`whole`)."""
+      graph's n_nodes rows, and every 'model' block gathered whole,
+      written by rank 0 in the unsharded driver's files, then a barrier;
+      on resume every rank reads them and keeps its padded rows and its
+      blocks, so a checkpoint restores on any mesh, 1-D, 2-D or unsharded
+      (`save`, `restore`);
+    - eval: rank 0 evaluates whole operators and the gathered table and
+      broadcasts the macro AUC, so the best-params and convergence
+      decisions agree (`val_macro`);
+    - results come back whole and unpadded (`whole`)."""
 
     def __init__(self, cfg: GQEConfig, schema, mesh: Mesh | None, device):
         """device: the run's device (None means the card); on a mesh it is
-        mesh.device, a 1-D mesh (parallel/mesh.py::make_mesh)."""
+        mesh.device (parallel/mesh.py::make_mesh or make_mesh_2d)."""
         from graphqembed_tpu_torch.device import resolve_device
 
         self.cfg, self.schema, self.mesh = cfg, schema, mesh
         self.n_rows = schema.n_nodes
         if mesh is not None:
             check_mesh_config(cfg, mesh)
-            if MODEL in mesh.axis_names:
-                raise ValueError(
-                    "the protocol drivers take a 1-D 'data' mesh (make_mesh); "
-                    f"a {mesh.axis_names} mesh of shape {mesh.shape} trains "
-                    "through make_sharded_train_step or "
-                    "make_sharded_scan_train_step")
             self.device = mesh.device
         else:
             self.device = resolve_device(device)

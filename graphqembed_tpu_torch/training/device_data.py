@@ -536,11 +536,13 @@ def make_multitask_mega_step(cfg: GQEConfig, optimizer,
     as JAX folds the dispatch index into its key). neighbor_tables drives
     the SAGE encoder at cfg.depth > 0 (make_scan_train_step).
 
-    mesh (parallel/mesh.py::Mesh): the data-parallel mega-step, each call
-    of make_sharded_scan_train_step (parallel/train_step.py): every rank
-    draws the same batches from its whole pools and trains its rows of
-    each, with params this rank's (parallel.shard_params). Float32 storage
-    only, and the mesh's size divides the batch (ValueError otherwise).
+    mesh (parallel/mesh.py::Mesh, 1-D or 2-D): the data-parallel
+    mega-step, each call of make_sharded_scan_train_step
+    (parallel/train_step.py; on a 2-D mesh the operators are
+    tensor-parallel over 'model'): every rank draws the same batches from
+    its whole pools and trains its rows of each, with params this rank's
+    (parallel.shard_params). Float32 storage only, and the mesh's 'data'
+    axis divides the batch (ValueError otherwise).
 
     Returns run(params, opt_state, key, n_rounds, steps_per)
     -> (params, opt_state, losses [n_rounds, n_structures] on the device)."""
@@ -658,9 +660,11 @@ def run_train_device_mega(cfg: GQEConfig, schema: Schema, params: dict,
     - queries_per_sec counts this session's steps (of the whole batch)
       over this session's train seconds; timings has the seconds per phase
       and session_steps;
-    - mesh (parallel/mesh.py::Mesh): every rank of the mesh calls this
-      with the same arguments, its pools on mesh.device (`device` is
-      mesh.device); see `MeshRun`.
+    - mesh (parallel/mesh.py::Mesh), 1-D ('data', make_mesh) or 2-D
+      ('data', 'model', make_mesh_2d: the operators tensor-parallel over
+      'model'): every rank of the mesh calls this with the same
+      arguments, its pools on mesh.device (`device` is mesh.device);
+      checkpoints, evals and the result hold whole arrays, see `MeshRun`.
     """
     import time
 

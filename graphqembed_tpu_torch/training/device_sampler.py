@@ -565,12 +565,14 @@ def make_onthefly_train_step(cfg: GQEConfig, optimizer, dg: DeviceGraph,
     neighbor_tables drives the SAGE encoder at cfg.depth > 0 (required
     there; placed on the device graph's device).
 
-    mesh (parallel/mesh.py::Mesh): every rank samples the same whole
-    dispatch (the same draws from the same generator) and trains its rows
-    of each batch, the loss over the whole batch's valid rows
-    (parallel/train_step.py::sharded_body); params are this rank's. JAX's
-    GSPMD also splits the sampling; here each rank samples all of it.
-    Float32 storage only, and the mesh's size divides the batch.
+    mesh (parallel/mesh.py::Mesh, 1-D or 2-D; on a 2-D mesh the batch
+    splits over 'data' and the operators over 'model'): every rank samples
+    the same whole dispatch (the same draws from the same generator) and
+    trains its rows of each batch, the loss over the whole batch's valid
+    rows (parallel/train_step.py::sharded_body); params are this rank's.
+    JAX's GSPMD also splits the sampling; here each rank samples all of
+    it. Float32 storage only, and the mesh's 'data' axis divides the
+    batch.
 
     Returns run(params, opt_state, structure, generator, n_steps, weight,
     use_hard) -> (params, opt_state, mean_loss), everything updated in
@@ -630,11 +632,12 @@ def run_train_onthefly(cfg: GQEConfig, schema: Schema, params: dict,
     an uninterrupted one. queries_per_sec counts this session's steps over
     this session's train seconds; timings has the seconds per phase and
     session_steps. neighbor_tables drives the SAGE encoder at cfg.depth >
-    0, in the steps and the evals. mesh (parallel/mesh.py::Mesh): every
-    rank calls this with the same arguments, dg on mesh.device (`device`
-    is mesh.device), params sharded here unless they are already;
-    checkpoints, evals and the result as in run_train_device_mega
-    (parallel/train_step.py::MeshRun). Returns a
+    0, in the steps and the evals. mesh (parallel/mesh.py::Mesh), 1-D
+    (make_mesh) or 2-D (make_mesh_2d, the operators tensor-parallel over
+    'model'): every rank calls this with the same arguments, dg on
+    mesh.device (`device` is mesh.device), params sharded here unless they
+    are already; checkpoints, evals and the result as in
+    run_train_device_mega (parallel/train_step.py::MeshRun). Returns a
     training/loop.py::TrainResult."""
     run = MeshRun(cfg, schema, mesh, device)
     dev = run.device

@@ -1,7 +1,8 @@
 """Rank functions for the mesh tests (tests/test_torch_mesh.py,
 tests/test_torch_sharded_trainer.py, tests/test_torch_tp.py,
-tests/test_torch_package.py, tests/test_torch_sharded_gather.py,
-tests/test_torch_halo.py, tests/test_torch_sharded_deep.py): each runs
+tests/test_torch_tp_drivers.py, tests/test_torch_package.py,
+tests/test_torch_sharded_gather.py, tests/test_torch_halo.py,
+tests/test_torch_sharded_deep.py): each runs
 on every rank of a gloo mesh started by
 graphqembed_tpu_torch.parallel.spawn_on_mesh, and rank 0's result comes
 back to the test. Spawned ranks import this module by name, so it imports
@@ -210,18 +211,22 @@ def result_numpy(res) -> dict:
 
 
 def device_mega(mesh, total: int, ckpt_dir=None, ckpt_every: int = 0,
-                resume: bool = False, val: bool = True) -> dict:
+                resume: bool = False, val: bool = True, depth: int = 0,
+                optimizer=None) -> dict:
     """run_train_device_mega on the trainer inputs (burn-in 10, 5 steps a
-    dispatch), on `mesh` (None: one process)."""
-    cfg = GQEConfig(**TRAINER_CFG)
+    dispatch), on `mesh` (None: one process); at depth > 0 the SAGE
+    encoder over neighbor tables of 4 samples (seed 0)."""
+    cfg = GQEConfig(**TRAINER_CFG, depth=depth)
     graph, train, val_q = trainer_inputs()
     data = tdd.DeviceTrainData(graph.schema, train, device="cpu")
     mgr = None if ckpt_dir is None else CheckpointManager(ckpt_dir, keep=10)
+    tables = NeighborTables.build(graph, sample_size=4, seed=0) if depth else None
     res = tdd.run_train_device_mega(
         cfg, graph.schema, fresh_params(cfg, graph, 0), data,
         val_queries=val_q if val else None, total_steps=total,
         burn_in_steps=10, steps_per=5, ckpt_manager=mgr,
-        ckpt_every=ckpt_every, resume=resume, mesh=mesh, device="cpu")
+        ckpt_every=ckpt_every, resume=resume, optimizer=optimizer,
+        neighbor_tables=tables, mesh=mesh, device="cpu")
     return result_numpy(res)
 
 
@@ -279,17 +284,24 @@ def case_onthefly(mesh) -> dict:
     return onthefly_sequence(mesh)
 
 
-def case_onthefly_protocol(mesh) -> dict:
+def onthefly_protocol(mesh, total: int = 300) -> dict:
+    """run_train_onthefly on the trainer graph and val queries (burn-in
+    100, 20 steps a dispatch), on `mesh` (None: one process)."""
     cfg = GQEConfig(**TRAINER_CFG)
     graph, _, val = trainer_inputs()
     dg = tds.DeviceGraph.build(graph, sample_size=8, seed=0, device="cpu")
     res = tds.run_train_onthefly(
         cfg, graph.schema, fresh_params(cfg, graph, 2), dg, val_queries=val,
-        total_steps=300, burn_in_steps=100, steps_per=20, mesh=mesh,
+        total_steps=total, burn_in_steps=100, steps_per=20, mesh=mesh,
         device="cpu")
-    return {"steps": res.steps, "best_val_auc": res.best_val_auc,
-            "table_rows": res.params["table"].shape[0],
-            "best_rows": res.best_params["table"].shape[0]}
+    return result_numpy(res)
+
+
+def case_onthefly_protocol(mesh) -> dict:
+    res = onthefly_protocol(mesh)
+    return {"steps": res["steps"], "best_val_auc": res["best_val_auc"],
+            "table_rows": res["params"]["table"].shape[0],
+            "best_rows": res["best_params"]["table"].shape[0]}
 
 
 
@@ -307,7 +319,7 @@ def _tp_state(opt_state, mesh):
     gathered and cut to the graph's rows."""
     mu, nu, _ = opt_state
     n = small_graph().schema.n_nodes
-    return [numpy_tree(pm.unshard_tree(pm.unshard_model(m, mesh), mesh, n))
+    return [numpy_tree(pm.unshard_tree(m, mesh, n))
             for m in (mu, nu)]
 
 
@@ -361,7 +373,7 @@ def case_tp_step(mesh, cfg_kw: dict, np_params: dict, batches: list,
         losses.append(float(loss))
     shapes = {p: tuple(x.shape) for p, x in tree_paths(sp)}
     moment_shapes = {p: tuple(x.shape) for p, x in tree_paths(state[0])}
-    whole = pm.unshard_tree(pm.unshard_model(sp, m), m,
+    whole = pm.unshard_tree(sp, m,
                             np_params["table"].shape[0])
     return {"losses": losses, "collectives": colls, "shapes": shapes,
             "moment_shapes": moment_shapes, "count": state[2],
@@ -388,7 +400,7 @@ def case_tp_scan(mesh, cfg_kw: dict, np_params: dict, data_seed: int,
                              tdd.derived_generator("cpu", gseed), n_steps, 1.0,
                              use_hard)
         losses.append(float(ml))
-    whole = pm.unshard_tree(pm.unshard_model(sp, m), m, graph.schema.n_nodes)
+    whole = pm.unshard_tree(sp, m, graph.schema.n_nodes)
     return {"losses": losses, "params": numpy_tree(whole)}
 
 
@@ -481,6 +493,145 @@ def case_tp_counts(mesh, cfg_kw: dict, np_params: dict, shape: tuple,
         sp, state, _ = scan(sp, state, pools[st], st,
                             tdd.derived_generator("cpu", 5), 1, 1.0, False)
         out["scan"][st] = (pm.collective_counts(), pm.collective_counts("model"))
+    return out
+
+
+def case_tp_drivers(mesh, shape: tuple) -> dict | None:
+    """Both protocol drivers, short, on a 2-D mesh: what comes back."""
+    m = _mesh_2d(mesh, shape)
+    if m is None:
+        return None
+    return {"device_mega": device_mega(m, 20), "onthefly": onthefly_protocol(
+        m, 140)}
+
+
+# ---------- tests/test_torch_tp_drivers.py ----------
+
+
+class ShapeProbe(tdd.FusedAdamOpt):
+    """FusedAdamOpt that keeps the shapes of the leaves and of Adam's
+    moments it updates at each step, as {path: shape} pairs."""
+
+    def __init__(self, lr):
+        super().__init__(lr)
+        self.seen = []
+
+    def apply(self, params, grads, state):
+        self.seen.append(tuple({p: tuple(x.shape) for p, x in tree_paths(t)}
+                               for t in (params, state[0], state[1])))
+        return super().apply(params, grads, state)
+
+
+def case_tp_protocol(mesh, shape: tuple, depth: int = 0) -> dict | None:
+    """run_train_device_mega (40 steps, evals) on a 2-D mesh, with the
+    shapes the optimizer saw at every step."""
+    m = _mesh_2d(mesh, shape)
+    if m is None:
+        return None
+    probe = ShapeProbe(TRAINER_CFG["lr"])
+    out = device_mega(m, 40, depth=depth, optimizer=probe)
+    out["step_shapes"] = probe.seen
+    return out
+
+
+def case_tp_onthefly(mesh, shape: tuple) -> dict | None:
+    m = _mesh_2d(mesh, shape)
+    return None if m is None else onthefly_protocol(m)
+
+
+def case_tp_resume(mesh, shape: tuple, ckpt_dir: str) -> dict | None:
+    """case_resume on a 2-D mesh."""
+    m = _mesh_2d(mesh, shape)
+    return None if m is None else case_resume(m, ckpt_dir)
+
+
+def case_tp_cross(mesh, shape: tuple, write_dir: str, one_dir: str) -> dict:
+    """On the 2-D mesh: checkpoints of a 20-step budget to write_dir, then
+    one-process checkpoints (one_dir) resumed to a 30-step budget; on the
+    1-D mesh of every rank: write_dir's resumed to 30 steps."""
+    m = _mesh_2d(mesh, shape)
+    out = {}
+    if m is not None:
+        device_mega(m, 20, write_dir, 10, val=False)
+        out["one_to_2d"] = device_mega(m, 30, one_dir, 10, resume=True,
+                                       val=False)
+    pm.barrier(mesh)
+    out["2d_to_1d"] = device_mega(mesh, 30, write_dir, 10, resume=True,
+                                  val=False)
+    return out
+
+
+def _state_tree(seed: int) -> dict:
+    """A driver's state of the trainer's shapes: params, Adam's (mu, nu,
+    count) and best params, every leaf drawn from `seed`."""
+    cfg = GQEConfig(**TRAINER_CFG)
+    graph = small_graph()
+    p = [fresh_params(cfg, graph, seed + k) for k in range(4)]
+    return {"params": p[0], "opt_state": (p[1], p[2], 7), "best_params": p[3]}
+
+
+def _trees_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_trees_equal, a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.shape == b.shape and a.dtype == b.dtype
+                and bool(torch.equal(a.detach(), b.detach())))
+    return a == b
+
+
+def case_tree_placement(mesh, shape: tuple) -> dict:
+    """shard_tree, unshard_tree and is_sharded on the 1-D mesh of every rank
+    against their table-only forms (the 1-D paths unchanged: equal values,
+    the other leaves the same tensors) and on the 2-D mesh: each TP leaf
+    and moment cut to the rank's block, and the round trip whole again."""
+    n = small_graph().schema.n_nodes
+
+    def tables(fn, state):
+        """The state with each params tree's table replaced by fn(table):
+        what shard_tree and unshard_tree did before the 2-D mesh."""
+        def one(p):
+            return dict(p, table=fn(p["table"]))
+
+        mu, nu, count = state["opt_state"]
+        return {"params": one(state["params"]), "opt_state": (one(mu), one(nu), count),
+                "best_params": one(state["best_params"])}
+
+    whole = _state_tree(3)
+    sharded = pm.shard_tree(whole, mesh)
+    own = tables(lambda t: pm._own_rows(t, mesh), whole)
+    gathered = pm.unshard_tree(sharded, mesh, n)
+    by_tables = tables(lambda t: pm.gather_table(t, mesh, n), sharded)
+    def same_leaves(a, b):
+        return all(x is y for (p, x), (_, y) in zip(tree_paths(a), tree_paths(b))
+                   if p != "table")
+
+    same_objects = (same_leaves(sharded["params"], whole["params"])
+                    and same_leaves(gathered["params"], sharded["params"]))
+    out = {"1d": {"shard_equal": _trees_equal(sharded, own),
+                  "unshard_equal": _trees_equal(gathered, by_tables),
+                  "round_trip": _trees_equal(gathered, whole),
+                  "same_objects": same_objects,
+                  "is_sharded": pm.is_sharded(sharded["params"], mesh, n),
+                  "whole_is_sharded": pm.is_sharded(whole["params"], mesh, n)}}
+    m = _mesh_2d(mesh, shape)
+    if m is None:
+        return out
+    blocks = pm.shard_tree(whole, m)
+    placed = pm.shard_params(whole["params"], m)
+    back = pm.unshard_tree(blocks, m, n)
+    half = dict(blocks["params"], proj=whole["params"]["proj"])
+    out["2d"] = {
+        "params_equal_shard_params": _trees_equal(blocks["params"], placed),
+        "shapes": [{p: tuple(x.shape) for p, x in tree_paths(t)}
+                   for t in (blocks["params"], *blocks["opt_state"][:2],
+                             blocks["best_params"])],
+        "count": blocks["opt_state"][2],
+        "round_trip": _trees_equal(back, whole),
+        "is_sharded": pm.is_sharded(blocks["params"], m, n),
+        "whole_is_sharded": pm.is_sharded(whole["params"], m, n),
+        "half_is_sharded": pm.is_sharded(half, m, n)}
     return out
 
 
