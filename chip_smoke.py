@@ -173,6 +173,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
              finite parameters, falling losses; macro AUC and APR within
              0.01 of JAX CPU's on the same data from the same init, and of
              the float64 oracle's wherever JAX CPU is
+  paperscale (in a spawned process, beside oracle_parity's host loops)
+             the paper-scale protocol (experiments/paperscale.py and
+             onthefly_paperscale.py) at the full bio graph (scale 114):
+             100,320 nodes, 11,313,366 edges, 565,665 held out and the
+             10,182,036-row 1p pool on the card (gated); the six other
+             pools (500 queries each) on host threads during burn-in
+             (deferred_pools) and the eval sets on another; the DeviceGraph;
+             run_train_device_mega (1,000 burn-in steps, 2 rounds of
+             multitask) and run_train_onthefly (800, 2 rounds) at d=128,
+             B=512, bf16, cosine lr, with exact launches, finite losses,
+             a falling burn-in loss, the intersection structures' mean
+             round loss below the untrained parameters', an eval a round, ms
+             per step and peak memory; fused_adam_leaf_sr and scatter_rows
+             at the [100320, 128] bf16 table bit for bit against their
+             plain versions, timed beside bound and library call
 Then the card's name and power limit, the {"kernels": [...]} line, and the
 last line {"ok": true, "device": {...}}.
 """
@@ -4399,6 +4414,276 @@ def phase_oracle_parity(dev, card: str, bar: dict) -> dict:
     return {"runs": runs, "kernels": kern}
 
 
+# phase paperscale: the full bio paper-scale graph of
+# experiments/paperscale.py (RESULTS_bio_paperscale.json's data counts)
+PAPERSCALE_COUNTS = {"nodes": 100320, "edges": 11313366, "held": 565665,
+                     "n_1p": 10182036}
+# a few thousand steps of each driver at full width (d 128, B 512, bf16):
+# burn-in dispatches of 200 steps, then whole rounds of 7 x 200 with an
+# eval after each; the non-1p pools and the eval sets small
+PAPERSCALE = {"pool": {"burn_in": 1000, "rounds": 2},
+              "onthefly": {"burn_in": 800, "rounds": 2},
+              "n_inter": 500, "n_val": 50, "n_test": 20}
+
+
+def phase_paperscale(dev, card: str) -> dict:
+    """The paper-scale protocol's data and both drivers on the card
+    (experiments/paperscale.py, onthefly_paperscale.py): the bio graph at
+    scale 114 (counts gated), the 10,182,036-row 1p pool on the card, the
+    six other pools (n_inter 2,000) on host threads during burn-in through
+    deferred_pools, the eval sets on another thread, the DeviceGraph; then
+    run_train_device_mega (burn-in into multitask) and run_train_onthefly,
+    a few thousand bf16 steps each at d = 128, B = 512 under the cosine
+    schedule, with exact launches (fused_adam_leaf 3, fused_adam_leaf_sr 1
+    and scatter_rows 1 a step), finite losses, a falling burn-in loss,
+    the intersection structures' mean loss in every multitask round below
+    the initial parameters' (the 1p burn-in already trained the table they
+    share, so they need not fall further in a few rounds; each
+    structure's losses reported beside its initial loss), ms per step and
+    peak memory; fused_adam_leaf_sr
+    and scatter_rows at the [100320, 128] bf16 table against their plain
+    versions (bit for bit), timed beside their bound and library call."""
+    import numpy as np
+    import torch
+    from concurrent.futures import ThreadPoolExecutor
+
+    from graphqembed_tpu_torch.config import INTERSECT_STRUCTURES
+    from graphqembed_tpu_torch.experiments import onthefly_paperscale as otf
+    from graphqembed_tpu_torch.experiments import paperscale as ps
+    from graphqembed_tpu_torch.experiments.kernel_bench import scatter_cost
+    from graphqembed_tpu_torch.experiments.oracle_parity import to_device
+    from graphqembed_tpu_torch.models.params import tree_leaves
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.ops import grads
+    from graphqembed_tpu_torch.training.device_data import (
+        _batch_ids,
+        _select_batches,
+        device_pool_from_arrays,
+    )
+    from graphqembed_tpu_torch.training.device_sampler import DeviceGraph
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    failed = []
+
+    def gate(cond, msg):
+        """A check whose failure is reported after the phase's line."""
+        if not cond:
+            failed.append(msg)
+    t0 = time.perf_counter()
+    graph, train_graph, held = ps.make_graphs("bio", 114.0, 40.0)
+    out["graph_s"] = time.perf_counter() - t0
+    counts = {"nodes": graph.schema.n_nodes, "edges": graph.num_edges(),
+              "held": len(held)}
+    schema = graph.schema
+    t0 = time.perf_counter()
+    arr_1p = ps.one_p_arrays(train_graph)
+    counts["n_1p"] = len(arr_1p["targets"])
+    check(counts == PAPERSCALE_COUNTS,
+          f"paper-scale counts {counts}, want {PAPERSCALE_COUNTS}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    pool_1p = device_pool_from_arrays(schema, arr_1p, device=dev)
+    del arr_1p
+    torch.cuda.synchronize(dev)
+    out.update(counts=counts, pool_1p_s=time.perf_counter() - t0,
+               pool_1p_bytes=sum(getattr(pool_1p, k).numel() * 8 for k in
+                                 ("anchors", "rels", "inter_modes", "targets",
+                                  "negs", "neg_counts", "hard", "hard_counts")))
+    # the experiment's order: the other pools and the eval sets on host
+    # threads once the 1p pool is built, while burn-in trains
+    ex = ThreadPoolExecutor(max_workers=6)
+    others = {st: ex.submit(ps.other_arrays, train_graph, st,
+                            PAPERSCALE["n_inter"])
+              for st in ps.other_structures()}
+    ex_eval = ThreadPoolExecutor(max_workers=1)
+    eval_fut = ex_eval.submit(ps.eval_sets, graph, train_graph,
+                              PAPERSCALE["n_val"], PAPERSCALE["n_test"])
+    pools = {}
+    waits = {}
+
+    def deferred():
+        tw = time.perf_counter()
+        for st, fut in others.items():
+            pools[st] = device_pool_from_arrays(schema, fut.result(), device=dev)
+        waits["pool_join_wait_s"] = time.perf_counter() - tw
+        return dict(pools)
+
+    def val_fn():
+        return eval_fut.result()[0]
+
+    def quiet(*_):
+        pass
+
+    def run(name, train, p):
+        burn, rounds = p["burn_in"], p["rounds"]
+        steps = burn + rounds * 7 * ps.STEPS_PER
+        cfg = dataclasses.replace(ps.experiment_config(0.03, steps, True),
+                                  val_every=7 * ps.STEPS_PER)
+        params = to_device(ps.initial_params(cfg, schema), dev)
+        reset_counts()
+        w0 = time.perf_counter()
+        res = train(cfg, params, steps, burn)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - w0
+        launches = read_counts()
+        gate(res.steps == steps and res.burn_in_steps == burn,
+              f"{name}: {res.steps} steps, {res.burn_in_steps} of burn-in")
+        want = want_counts(fused_adam_leaf=3 * steps, fused_adam_leaf_sr=steps,
+                           scatter_rows=steps)
+        gate(launches == want, f"{name} launches {launches}, want {want}")
+        losses = res.losses
+        gate(all(np.isfinite(v) for vs in losses.values() for v in vs),
+              f"{name}: a loss is not finite")
+        b = losses["1p"][:burn // ps.STEPS_PER]
+        gate(fell(b, 2), f"{name}: burn-in loss did not fall: {b}")
+        multi = {s: losses[s][-rounds:] for s in ps.other_structures()}
+        gate(all(len(v) == rounds for v in multi.values()),
+              f"{name}: multitask losses {multi}")
+        gate(len(res.val_history) == rounds
+              and all(0.0 < m <= 1.0 for _, m in res.val_history),
+              f"{name}: val history {res.val_history}")
+        gate(all(bool(torch.isfinite(x.float()).all())
+                  for x in tree_leaves(res.best_params)), f"{name}: non-finite params")
+        return {"steps": steps, "burn_in": burn, "launches": launches,
+                "wall_s": wall, "train_s": res.timings["train_s"],
+                "ms_per_step": 1e3 * res.timings["train_s"] / steps,
+                "eval_s": res.timings["eval_s"],
+                "loss_burn_first_last": [b[0], b[-1]],
+                "loss_multi_rounds": multi,
+                "val_history": res.val_history,
+                "peak_memory_gib": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+    out["pool"] = run("pool", lambda cfg, params, steps, burn: ps.train(
+        cfg, schema, params, pool_1p, deferred, val_fn, steps, burn, dev,
+        echo=quiet), PAPERSCALE["pool"]) | {
+        "pool_wait_s": waits["pool_join_wait_s"]}
+    ex.shutdown()
+    del pool_1p
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    td = time.perf_counter()
+    dg = DeviceGraph.build(train_graph, sample_size=16, seed=0, device=dev)
+    torch.cuda.synchronize(dev)
+    out["device_graph_s"] = time.perf_counter() - td
+    out["onthefly"] = run("onthefly", lambda cfg, params, steps, burn: otf.train(
+        cfg, schema, params, dg, val_fn, steps, burn, dev, echo=quiet),
+        PAPERSCALE["onthefly"])
+    ex_eval.shutdown()
+    # the structures that first train in the multitask phase (their own
+    # operators; the 1p burn-in moved the table): each round's weighted
+    # loss below the initial parameters' on fresh batches of the graph
+    out["loss_untrained"] = untrained = _untrained_losses(
+        ps.experiment_config(0.03, 1, True), schema, dg, dev)
+    # the chains (2p, 3p) compose projections that a few thousand steps
+    # leave near their initial loss on fresh on-the-fly samples (PR 6's
+    # onthefly phase: flat after burn-in): reported beside it, not gated
+    base = float(np.mean([untrained[s] for s in INTERSECT_STRUCTURES]))
+    for name in ("pool", "onthefly"):
+        multi = out[name]["loss_multi_rounds"]
+        rounds = np.mean([multi[s] for s in INTERSECT_STRUCTURES], axis=0)
+        gate(bool((rounds < base).all()), f"{name}: the intersection "
+             f"structures' mean round losses {rounds.tolist()} not below "
+             f"the untrained parameters' {base}")
+
+    # the kernels at the paper-scale table [100320, 128], bfloat16
+    gen = torch.Generator().manual_seed(15)
+    n, d = PAPERSCALE_COUNTS["nodes"], 128
+    numel, lr = n * d, 0.01
+
+    def rnd(scale):
+        return (torch.randn((n, d), generator=gen) * scale).to(dev)
+
+    base = [rnd(1.0).bfloat16(), rnd(0.01).bfloat16(), rnd(1e-3).abs().bfloat16()]
+    g = rnd(0.01).bfloat16()
+    k, q = [x.clone() for x in base], [x.clone() for x in base]
+    fa.fused_adam_leaf_sr(k[0], g, k[1], k[2], 3, 15, lr)
+    fa.fused_adam_leaf_sr_plain(q[0], g, q[1], q[2], 3, 15, lr)
+    torch.cuda.synchronize(dev)
+    check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+              for a, b in zip(k, q)), "fused_adam_leaf_sr differs from plain "
+          "at the paper-scale table")
+    p_, mu, nu = k
+    b_ms, b_by = bound(14 * numel, 62 * numel)
+    sr_fn = lambda: fa.fused_adam_leaf_sr(p_, g, mu, nu, 5, 23, lr)  # noqa: E731
+    out["fused_adam_leaf_sr"] = {
+        "shape": [n, d], "max_abs_err": max(float((a.float() - b.float()).abs().max())
+                                            for a, b in zip(k, q)),
+        "ms": device_ms(sr_fn), "call_ms": time_ms(sr_fn),
+        "plain_ms": device_ms(lambda: fa.fused_adam_leaf_sr_plain(
+            p_, g, mu, nu, 5, 23, lr), reps=5),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    del base, k, q, g, p_, mu, nu
+
+    cfg = ps.experiment_config(0.03, 1, True)
+    batch = _select_batches(cfg, torch.Generator(device=dev).manual_seed(5), 1,
+                            pools["3i"], True)
+    ids = _batch_ids(batch)[0].reshape(-1).contiguous()
+    ct = (torch.randn((ids.numel(), d), generator=gen) * 0.01).to(dev, torch.bfloat16)
+    got = grads.scatter_rows(n, ids, ct)
+    want = grads.scatter_rows_plain(n, ids, ct)
+    torch.cuda.synchronize(dev)
+    check(torch.equal(got.view(torch.int16), want.view(torch.int16)),
+          "scatter_rows differs from plain at the paper-scale table")
+    n_bytes, n_ops = scatter_cost(n, ids.numel(), d, 2)
+    b_ms, b_by = bound(n_bytes, n_ops)
+    zero = torch.zeros((n, d), dtype=torch.bfloat16, device=dev)
+    sc_fn = lambda: grads.scatter_rows(n, ids, ct)  # noqa: E731
+
+    def zeros_index_add():
+        torch.zeros((n, d), dtype=torch.bfloat16, device=dev).index_add_(0, ids, ct)
+
+    out["scatter_rows"] = {
+        "shape": [n, d], "ids": "a 3i batch of the paper-scale pool",
+        "length": ids.numel(), "max_abs_err": float((got.float() - want.float()).abs().max()),
+        "ms": device_ms(sc_fn), "call_ms": time_ms(sc_fn),
+        "plain_ms": device_ms(lambda: grads.scatter_rows_plain(n, ids, ct), reps=5),
+        "library_ms": device_ms(lambda: zero.index_add_(0, ids, ct)),
+        "zeros_index_add_ms": device_ms(zeros_index_add),
+        "bound_ms": b_ms, "bound_by": b_by}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "paperscale", **out, "failed": failed})
+    check(not failed, "paperscale: " + "; ".join(failed))
+    return out
+
+
+def paperscale_child(card: str) -> dict:
+    """phase_paperscale on cuda:0 in a spawned process (main runs it beside
+    the oracle bar): its launch counts are this process's own."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return phase_paperscale(torch.device("cuda"), card)
+
+
+def _untrained_losses(cfg, schema, dg, dev) -> dict:
+    """Per structure, the weighted margin loss of the paper-scale runs'
+    initial parameters on four on-the-fly batches of the train graph (hard
+    negatives on the intersection structures' odd steps)."""
+    import torch
+
+    from graphqembed_tpu_torch.config import INTERSECT_STRUCTURES, STRUCTURES
+    from graphqembed_tpu_torch.experiments import paperscale as ps
+    from graphqembed_tpu_torch.experiments.oracle_parity import to_device
+    from graphqembed_tpu_torch.models import gqe
+    from graphqembed_tpu_torch.training import device_sampler as ds
+    from graphqembed_tpu_torch.training.loop import structure_weight
+
+    params = to_device(ps.initial_params(cfg, schema), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    with torch.no_grad():
+        for s in STRUCTURES:
+            b = ds.sample_dispatch(cfg, dg, ds.torch_draw(gen), s, 4,
+                                   s in INTERSECT_STRUCTURES)
+            out[s] = structure_weight(cfg, s) * float(torch.stack([
+                gqe.margin_loss_rows_onegather(
+                    cfg, params, s, b["anchors"][t], b["rels"][t],
+                    b["inter_modes"][t], b["targets"][t], b["negs"][t],
+                    b["mask"][t]) for t in range(4)]).mean())
+    return out
+
+
 def main(argv):
     import torch
 
@@ -4431,7 +4716,14 @@ def main(argv):
     protocol, onthefly, deep, stream, protocol_data = protocol_phases(
         dev, card, work, "--profile" in argv)
     bar = phase_sampler(dev, card, protocol_data["python_sample_s"])
-    oracle = phase_oracle_parity(dev, card, bar)
+    # the oracle bar's host loops leave the card and most cores idle: the
+    # paper-scale phase runs beside them in a spawned process
+    import multiprocessing
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        paper_run = pool.apply_async(paperscale_child, (card,))
+        oracle = phase_oracle_parity(dev, card, bar)
+        # a child that dies leaves its result unset: bound the wait
+        paper = paper_run.get(timeout=900)
 
     print(card, flush=True)
 
@@ -4463,6 +4755,12 @@ def main(argv):
          "bound_ms": sr_t["bound_ms"], "bound_by": sr_t["bound_by"],
          "library_ms": sr_t["library_ms"]},
     ]
+    def paper_launches(name):
+        """Phase paperscale's launches of `name`: the pool driver's run and
+        the onthefly driver's."""
+        return {"pool": paper["pool"]["launches"][name],
+                "onthefly": paper["onthefly"]["launches"][name]}
+
     def stream_launches(name):
         """The stream phase's launches of `name`: its cell (a) and its CLI
         headline run (b)."""
@@ -4476,6 +4774,9 @@ def main(argv):
         row["launches_onthefly"] = onthefly["headline"]["launches"][row["name"]]
         row["launches_deep"] = deep_launches[row["name"]]
         row["launches_stream"] = stream_launches(row["name"])
+        row["launches_paperscale"] = paper_launches(row["name"])
+    # phase paperscale: the SR kernel at the paper-scale bf16 table
+    kernels[1]["paperscale_table"] = paper["fused_adam_leaf_sr"]
     def mesh_launches(name):
         """Phase mesh's launches of `name` in its sharded runs: (b) the
         host-batch steps, (c) run_train_device_mega, (e) its resume, (d)
@@ -4525,6 +4826,9 @@ def main(argv):
          "launches_onthefly": onthefly["headline"]["launches"]["scatter_rows"],
          "launches_deep": deep_launches["scatter_rows"],
          "launches_stream": stream_launches("scatter_rows"),
+         "launches_paperscale": paper_launches("scatter_rows"),
+         # phase paperscale: a 3i batch's ids on the [100320, 128] table
+         "paperscale_table": paper["scatter_rows"],
          "launches_mesh": mesh_launches("scatter_rows"),
          "launches_tp": {k: v["scatter_rows"] for k, v in tp["launches"].items()},
          "launches_owner": owner["launches"]["scatter_rows"],

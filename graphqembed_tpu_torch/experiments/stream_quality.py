@@ -13,15 +13,19 @@ from the Python sampler (rng 5, max_negs 32) over all 7 structures; the
 bf16 flagship config (d = 128, bilinear/min, B = 512, lr 0.03, bfloat16
 compute and storage, convergence stopping off, five evals). Every row
 trains from the same parameters, the port's `init_params` on a CPU
-generator seeded 0, and is scored on its best parameters: val macro AUC
-and hard AUC (seed 3) and APR (max_negs 32).
+generator seeded with `--seed` (0 by default), and is scored on its best
+parameters: val macro AUC and hard AUC (seed 3) and APR (max_negs 32).
 
 The five default rows (device, reuse 2, 4, 8, 32) at 60,000 steps take
 too long for one process, so `--rows` picks the rows of one run and
 `--merge` builds the table from the row files that earlier runs wrote.
 Every row carries the SHA-256 of the train arrays, the val queries and the
 initial parameters, and `--merge` refuses rows whose digests or settings
-differ.
+differ. `--seed k` seeds the initial parameters' generator and the batch
+draws with k (default 0) and names the row files <name>-seed<k>.json;
+`--merge` keeps the seeds apart (one initial-parameter digest per seed,
+the same train and val data for all) and adds each row's mean and spread
+over the seeds.
 
     python -m graphqembed_tpu_torch.experiments.stream_quality --rows device,2
     python -m graphqembed_tpu_torch.experiments.stream_quality --rows 4,8
@@ -83,11 +87,12 @@ TPU_TABLE = Path(__file__).resolve().parents[2] / "RESULTS_stream_quality.json"
 OUT = "RESULTS_stream_quality_h100"
 
 
-def flagship_config(steps: int, stream_window: int) -> GQEConfig:
+def flagship_config(steps: int, stream_window: int,
+                    seed: int = 0) -> GQEConfig:
     """The bf16 flagship config of the guard: five evals, no convergence
-    stop."""
+    stop; `seed` seeds the batch draws and the in-loop evals."""
     return GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
-                     batch_size=512, lr=0.03, seed=0,
+                     batch_size=512, lr=0.03, seed=seed,
                      val_every=max(1, steps // 5), tol=0.0,
                      conv_window=10**9, stream_window=stream_window,
                      compute_dtype="bfloat16", storage_dtype="bfloat16")
@@ -95,6 +100,12 @@ def flagship_config(steps: int, stream_window: int) -> GQEConfig:
 
 def row_name(reuse: float | None) -> str:
     return "device" if reuse is None else f"stream-reuse{reuse:g}"
+
+
+def row_file(name: str, seed: int) -> str:
+    """A row's file name: <name>.json at seed 0 (the single-seed table's
+    names), <name>-seed<k>.json at seed k."""
+    return f"{name}.json" if seed == 0 else f"{name}-seed{seed}.json"
 
 
 def parse_rows(text: str) -> list[float | None]:
@@ -135,10 +146,10 @@ def build_data(graph, n_inter: int, n_val: int, out_dir: str | Path) -> dict:
     return {"arrays": arrays, "val": val, "train_dir": train_dir}
 
 
-def initial_params(cfg: GQEConfig, schema) -> dict:
+def initial_params(cfg: GQEConfig, schema, seed: int = 0) -> dict:
     """Every row's starting point, on the CPU: init_params drawn from a CPU
-    generator seeded 0."""
-    return init_params(cfg, schema, torch.Generator().manual_seed(0),
+    generator seeded `seed`."""
+    return init_params(cfg, schema, torch.Generator().manual_seed(seed),
                        device="cpu")
 
 
@@ -213,22 +224,40 @@ def _macro(row: dict, metric: str) -> float:
     return float(row[metric]["macro"])
 
 
+def row_seed(row: dict) -> int:
+    """The seed a row trained with (0 for rows written before --seed)."""
+    return int(row.get("seed", 0))
+
+
+def row_key(row: dict) -> str:
+    """A row's key in the table: its file name without .json."""
+    return row_file(row["name"], row_seed(row))[:-len(".json")]
+
+
 def merge_rows(rows: list[dict]) -> list[dict]:
-    """The rows in table order (device first, then by reuse), after checking
-    that every row trained on the same data from the same start with the
-    same settings; raises ValueError otherwise, or on a repeated row."""
+    """The rows in table order (by seed, then device first, then by reuse),
+    after checking that every row trained with the same settings on the
+    same train and val data, and the rows of one seed from the same
+    initial parameters; raises ValueError otherwise, or on a repeated
+    row."""
     if not rows:
         raise ValueError("no rows to merge")
-    for key in ("digests", "settings"):
-        seen = {json.dumps(r[key], sort_keys=True) for r in rows}
+
+    def same(key, group, pick=lambda x: x):
+        seen = {json.dumps(pick(r[key]), sort_keys=True) for r in group}
         if len(seen) != 1:
             raise ValueError(
                 f"rows differ in their {key}: "
-                + "; ".join(f"{r['name']}: {r[key]}" for r in rows))
-    names = [r["name"] for r in rows]
-    if len(set(names)) != len(names):
-        raise ValueError(f"a row appears twice: {names}")
-    return sorted(rows, key=lambda r: (r["name"] != "device",
+                + "; ".join(f"{row_key(r)}: {r[key]}" for r in group))
+
+    same("settings", rows)
+    same("digests", rows, lambda d: {k: d[k] for k in ("train", "val")})
+    for seed in {row_seed(r) for r in rows}:
+        same("digests", [r for r in rows if row_seed(r) == seed])
+    keys = [row_key(r) for r in rows]
+    if len(set(keys)) != len(keys):
+        raise ValueError(f"a row appears twice: {keys}")
+    return sorted(rows, key=lambda r: (row_seed(r), r["name"] != "device",
                                        r["stream_reuse"] or 0.0))
 
 
@@ -241,33 +270,67 @@ def tpu_deltas() -> dict:
             for name, x in table.items() if name != "device"}
 
 
+def mean_sd(xs: list[float]) -> dict:
+    """{"mean", "sd" (sample standard deviation; None for one value), "n"}."""
+    x = np.asarray(xs, dtype=np.float64)
+    return {"mean": float(x.mean()),
+            "sd": float(x.std(ddof=1)) if len(x) > 1 else None, "n": len(x)}
+
+
 def write_table(rows: list[dict], out: str | Path = OUT) -> dict:
     """RESULTS_stream_quality_h100.{md,json} (`out` without its suffix)
     from merged rows: the rows (macro AUC, hard AUC, APR, q/s with the
-    card beside it), then each stream − device delta beside the TPU
-    table's delta and their difference in macro AUC. Returns the JSON."""
+    card beside it), each stream − device delta of one seed beside the
+    TPU table's delta and their difference in macro AUC, and, where rows
+    of several seeds are merged, each row's mean and standard deviation
+    over the seeds and each delta's. Returns the JSON."""
     rows = merge_rows(rows)
-    settings, digest = rows[0]["settings"], rows[0]["digests"]
+    settings = rows[0]["settings"]
+    seeds = sorted({row_seed(r) for r in rows})
+    digest_by_seed = {str(s): next(r["digests"] for r in rows
+                                   if row_seed(r) == s) for s in seeds}
     tpu = tpu_deltas()
-    by = {r["name"]: r for r in rows}
-    deltas = {}
-    if "device" in by:
+    deltas, by_delta = {}, {}
+    for seed in seeds:
+        by = {r["name"]: r for r in rows if row_seed(r) == seed}
+        if "device" not in by:
+            continue
         d = by["device"]
-        for r in rows:
-            if r["name"] == "device":
+        for name, r in by.items():
+            if name == "device":
                 continue
             got = {m: _macro(r, m) - _macro(d, m) for m in METRICS}
-            want = tpu.get(r["name"])
-            deltas[r["name"]] = {
-                "delta": got, "tpu_delta": want,
+            want = tpu.get(name)
+            deltas[row_key(r)] = {
+                "seed": seed, "delta": got, "tpu_delta": want,
                 "auc_delta_minus_tpu": (None if want is None else
                                         got["val_auc"] - want["val_auc"])}
-    result = {"settings": settings, "digests": digest,
-              "rows": {r["name"]: r for r in rows}, "deltas": deltas}
+            by_delta.setdefault(name, []).append(got)
+    names = list(dict.fromkeys(r["name"] for r in rows))
+    over_seeds = {name: {m: mean_sd([_macro(r, m) for r in rows
+                                     if r["name"] == name]) for m in METRICS}
+                  for name in names}
+    delta_over_seeds = {}
+    for name, got in by_delta.items():
+        want = tpu.get(name)
+        x = {m: mean_sd([g[m] for g in got]) for m in METRICS}
+        x["tpu_delta"] = want
+        x["auc_mean_minus_tpu"] = (None if want is None else
+                                   x["val_auc"]["mean"] - want["val_auc"])
+        delta_over_seeds[name] = x
+    result = {"settings": settings, "digests": digest_by_seed[str(seeds[0])],
+              "seeds": seeds, "digests_by_seed": digest_by_seed,
+              "rows": {row_key(r): r for r in rows}, "deltas": deltas,
+              "over_seeds": over_seeds, "delta_over_seeds": delta_over_seeds}
     Path(f"{out}.json").write_text(json.dumps(result, indent=1))
 
     def f(x):
         return "n/a" if x is None else f"{x:+.4f}"
+
+    def ms(x):
+        if x["sd"] is None:
+            return f"{x['mean']:.4f} (one seed)"
+        return f"{x['mean']:.4f} ± {x['sd']:.4f}"
 
     lines = [
         "# Stream schedule quality guard on the port",
@@ -279,34 +342,68 @@ def write_table(rows: list[dict], out: str | Path = OUT) -> dict:
         "",
         f"Settings: {json.dumps(settings, sort_keys=True)}.",
         "",
-        f"Digests (SHA-256): train arrays `{digest['train']}`, val queries "
-        f"`{digest['val']}`, initial parameters `{digest['init']}`.",
+        f"Digests (SHA-256), the same at every seed: train arrays "
+        f"`{digest_by_seed[str(seeds[0])]['train']}`, val queries "
+        f"`{digest_by_seed[str(seeds[0])]['val']}`. Initial parameters "
+        "(`--seed` k: init generator and batch seed k): " + ", ".join(
+            f"seed {s} `{digest_by_seed[str(s)]['init']}`" for s in seeds)
+        + ".",
         "",
-        "| pipeline | val macro AUC | hard-neg macro AUC | val macro APR "
+        "| row | seed | val macro AUC | hard-neg macro AUC | val macro APR "
         "| sustained q/s | ms per step | card |",
-        "|---|---|---|---|---|---|---|",
+        "|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         lines.append(
-            f"| {r['name']} | {_macro(r, 'val_auc'):.4f} "
+            f"| {r['name']} | {row_seed(r)} | {_macro(r, 'val_auc'):.4f} "
             f"| {_macro(r, 'val_auc_hard'):.4f} | {_macro(r, 'val_apr'):.4f} "
-            f"| {r['qps']:.0f} | {r['ms_per_step']:.3f} | {r['card']} |")
+            f"| {r['qps']:.0f} | {r['ms_per_step']:.3f} | {r['card']}"
+            + (f"; {r['note']}" if r.get("note") else "") + " |")
     lines += [
         "",
-        "Stream − device, beside the TPU table's deltas "
-        "(RESULTS_stream_quality.json: quality only, its q/s are a TPU's):",
+        "Stream − device at each seed, beside the TPU table's deltas "
+        "(RESULTS_stream_quality.json, one seed: quality only, its q/s are "
+        "a TPU's):",
         "",
-        "| delta | macro AUC | hard AUC | APR | TPU macro AUC | TPU hard AUC "
-        "| TPU APR | AUC delta − TPU's |",
-        "|---|---|---|---|---|---|---|---|",
+        "| delta | seed | macro AUC | hard AUC | APR | TPU macro AUC "
+        "| TPU hard AUC | TPU APR | AUC delta − TPU's |",
+        "|---|---|---|---|---|---|---|---|---|",
     ]
-    for name, x in deltas.items():
+    for key, x in deltas.items():
         t = x["tpu_delta"] or {}
+        name = key.rsplit("-seed", 1)[0] if x["seed"] else key
         lines.append(
-            f"| {name} − device | " + " | ".join(
+            f"| {name} − device | {x['seed']} | " + " | ".join(
                 f(x["delta"][m]) for m in METRICS) + " | " + " | ".join(
                 f(t.get(m)) for m in METRICS)
             + f" | {f(x['auc_delta_minus_tpu'])} |")
+    if len(seeds) > 1:
+        lines += [
+            "",
+            f"Over seeds {', '.join(map(str, seeds))}: mean ± sample "
+            "standard deviation of each row, then of each stream − device "
+            "delta (each seed's stream row minus its own device row):",
+            "",
+            "| row | seeds | val macro AUC | hard-neg macro AUC "
+            "| val macro APR |",
+            "|---|---|---|---|---|",
+        ]
+        for name, x in over_seeds.items():
+            lines.append(f"| {name} | {x['val_auc']['n']} | "
+                         + " | ".join(ms(x[m]) for m in METRICS) + " |")
+        lines += [
+            "",
+            "| delta | seeds | macro AUC | hard AUC | APR | TPU macro AUC "
+            "| mean AUC delta − TPU's |",
+            "|---|---|---|---|---|---|---|",
+        ]
+        for name, x in delta_over_seeds.items():
+            t = x["tpu_delta"] or {}
+            lines.append(
+                f"| {name} − device | {x['val_auc']['n']} | "
+                + " | ".join(ms(x[m]) for m in METRICS)
+                + f" | {f(t.get('val_auc'))} "
+                f"| {f(x['auc_mean_minus_tpu'])} |")
     lines += ["", "q/s and ms per step count each row's train seconds "
               "(evals excluded); every row's q/s stands beside the card that "
               "measured it (name, power limit).", ""]
@@ -331,18 +428,29 @@ def main(argv=None) -> int:
     ap.add_argument("--rows", default=None,
                     help="rows of this call, e.g. device,2 (default: device "
                          "and every --reuse)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seeds the initial parameters' generator and the "
+                         "config's batch seed (0: the single-seed table's)")
     ap.add_argument("--out_dir", default="runs/stream_quality",
-                    help="where each row's <name>.json is written")
+                    help="where each row's <name>.json (<name>-seed<k>.json "
+                         "at --seed k) is written")
     ap.add_argument("--merge", nargs="+", metavar="ROW_JSON",
-                    help="build the table from row files; trains nothing")
+                    help="build the table from row files (or the rows of "
+                         "an earlier table's JSON); trains nothing")
     ap.add_argument("--out", default=OUT,
                     help="the table's path without .md / .json")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU (the plain PyTorch versions)")
+    ap.add_argument("--note", default=None,
+                    help="how the card was shared (e.g. rows running at "
+                         "once), printed beside it in the table")
     args = ap.parse_args(argv)
 
     if args.merge:
-        rows = [json.loads(Path(p).read_text()) for p in args.merge]
+        rows = []
+        for p in args.merge:
+            x = json.loads(Path(p).read_text())
+            rows += list(x["rows"].values()) if "rows" in x else [x]
         result = write_table(rows, args.out)
         print(json.dumps({"merged": list(result["rows"]),
                           "deltas": result["deltas"]}))
@@ -353,13 +461,13 @@ def main(argv=None) -> int:
     settings = {k: getattr(args, k) for k in
                 ("scale", "avg_degree", "n_inter", "n_val", "steps",
                  "burn_in", "stream_window")}
-    cfg = flagship_config(args.steps, args.stream_window)
+    cfg = flagship_config(args.steps, args.stream_window, args.seed)
     graph = synthetic_graph(seed=0, scale=args.scale,
                             avg_degree=args.avg_degree)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="stream_quality_") as tmp:
         data = build_data(graph, args.n_inter, args.n_val, tmp)
-        p0 = initial_params(cfg, graph.schema)
+        p0 = initial_params(cfg, graph.schema, args.seed)
         digest = digests(data, p0)
         print(json.dumps({
             "graph": {"nodes": graph.schema.n_nodes,
@@ -377,8 +485,11 @@ def main(argv=None) -> int:
             row, _ = run_row(name, cfg_r, graph.schema, p0, data, args.steps,
                              args.burn_in, dev)
             row.update(card=card, device=str(dev), settings=settings,
-                       digests=digest)
-            (out_dir / f"{name}.json").write_text(json.dumps(row, indent=1))
+                       digests=digest, seed=args.seed)
+            if args.note:
+                row["note"] = args.note
+            (out_dir / row_file(name, args.seed)).write_text(
+                json.dumps(row, indent=1))
             print(json.dumps(row), flush=True)
     return 0
 

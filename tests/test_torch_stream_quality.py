@@ -21,6 +21,7 @@ steps with 100 of burn-in, a float32 config at d = 16, B = 64.
   val or parameter digests (or settings) differ.
 """
 
+import dataclasses
 import json
 
 import jax
@@ -43,7 +44,7 @@ from graphqembed_tpu.training.device_data import device_pool_from_arrays as jax_
 from graphqembed_tpu.training.device_data import run_train_device_mega as jax_mega
 from graphqembed_tpu_torch.config import GQEConfig
 from graphqembed_tpu_torch.experiments import stream_quality as sq
-from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+from graphqembed_tpu_torch.graph.synthetic import synthetic_graph, synthetic_schema
 from graphqembed_tpu_torch.models.params import params_from_jax
 
 SCALE, DEGREE, N_INTER, N_VAL = 0.5, 20.0, 40, 10
@@ -197,3 +198,79 @@ def test_merge_writes_the_table_and_refuses_other_digests(rows, tmp_path):
     files[1].write_text(json.dumps(row))
     with pytest.raises(ValueError, match="settings"):
         sq.main(["--merge", *map(str, files), "--out", str(out)])
+
+
+def test_seed_zero_leaves_the_rows_unchanged():
+    """--seed k seeds the initial parameters' generator and the config's
+    batch seed; the default 0 draws what the single-seed rows drew, and
+    names the row files as before."""
+    schema = synthetic_graph(seed=0, scale=SCALE, avg_degree=DEGREE).schema
+    cfg = sq.flagship_config(60_000, 16384)
+    assert cfg == sq.flagship_config(60_000, 16384, 0) and cfg.seed == 0
+    assert sq.flagship_config(60_000, 16384, 2).seed == 2
+
+    def init_digest(*seed):
+        return sq.digests({"arrays": [], "val": []},
+                          sq.initial_params(cfg, schema, *seed))["init"]
+
+    assert init_digest() == init_digest(0)
+    assert len({init_digest(0), init_digest(1), init_digest(2)}) == 3
+    assert sq.row_file("device", 0) == "device.json"
+    assert sq.row_file("stream-reuse2", 1) == "stream-reuse2-seed1.json"
+    # the committed card table: its seed-0 rows keep their single-seed
+    # names, and the default seed draws their initial parameters
+    committed = json.loads(sq.TPU_TABLE.with_name(sq.OUT + ".json").read_text())
+    table = sq.merge_rows([r for r in committed["rows"].values()
+                           if sq.row_seed(r) == 0])
+    assert [sq.row_key(r) for r in table] == [
+        "device", "stream-reuse2", "stream-reuse4", "stream-reuse8",
+        "stream-reuse32"]
+    guard = synthetic_schema(sq.DEFAULTS["scale"])
+    assert sq.digests({"arrays": [], "val": []}, sq.initial_params(
+        cfg, guard))["init"] == table[0]["digests"]["init"]
+
+
+def test_seed_flag_rows_merge_over_seeds(tmp_path, monkeypatch):
+    """Rows of two seeds through main (--cpu, narrow): their own files and
+    init digests, the same train and val digests; --merge keeps the seeds
+    apart and adds each row's mean and spread; a seed's row on other train
+    data is refused."""
+    full = sq.flagship_config
+    monkeypatch.setattr(sq, "flagship_config", lambda *a: dataclasses.replace(
+        full(*a), embed_dim=16, batch_size=64))
+    flags = ["--cpu", "--scale", str(SCALE), "--n_inter", str(N_INTER),
+             "--n_val", str(N_VAL), "--steps", "200", "--burn_in", "100",
+             "--stream_window", "256", "--rows", "device,2",
+             "--out_dir", str(tmp_path)]
+    for seed in (0, 1):
+        assert sq.main(flags + ["--seed", str(seed)]) == 0
+    names = sorted(p.name for p in tmp_path.glob("*.json"))
+    assert names == ["device-seed1.json", "device.json",
+                     "stream-reuse2-seed1.json", "stream-reuse2.json"]
+    rows = {p.stem: json.loads(p.read_text()) for p in tmp_path.glob("*.json")}
+    assert rows["device"]["seed"] == 0 and rows["device-seed1"]["seed"] == 1
+    assert rows["device"]["digests"]["init"] != rows["device-seed1"]["digests"]["init"]
+    for key in ("train", "val"):
+        assert rows["device"]["digests"][key] == rows["device-seed1"]["digests"][key]
+    out = tmp_path / "table"
+    assert sq.main(["--merge", *map(str, sorted(tmp_path.glob("*.json"))),
+                    "--out", str(out)]) == 0
+    table = json.loads(out.with_suffix(".json").read_text())
+    assert table["seeds"] == [0, 1]
+    assert list(table["rows"]) == ["device", "stream-reuse2", "device-seed1",
+                                   "stream-reuse2-seed1"]
+    auc = [rows[k]["val_auc"]["macro"] for k in ("device", "device-seed1")]
+    over = table["over_seeds"]["device"]["val_auc"]
+    assert over["n"] == 2 and over["mean"] == pytest.approx(np.mean(auc))
+    assert over["sd"] == pytest.approx(np.std(auc, ddof=1))
+    delta = table["delta_over_seeds"]["stream-reuse2"]["val_auc"]
+    assert delta["mean"] == pytest.approx(np.mean(
+        [table["deltas"][k]["delta"]["val_auc"]
+         for k in ("stream-reuse2", "stream-reuse2-seed1")]))
+    assert "Over seeds 0, 1" in out.with_suffix(".md").read_text()
+    bad = dict(rows["device-seed1"],
+               digests=dict(rows["device-seed1"]["digests"], train="0" * 64))
+    (tmp_path / "device-seed1.json").write_text(json.dumps(bad))
+    with pytest.raises(ValueError, match="digests"):
+        sq.main(["--merge", *map(str, sorted(tmp_path.glob("*-seed*.json"))),
+                 str(tmp_path / "device.json"), "--out", str(out)])
