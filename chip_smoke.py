@@ -11,7 +11,14 @@ points, evaluates what it trained, and checks what comes out.
                                       # kernel, idle share), and of two
                                       # onthefly dispatches
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing JSON lines with their host-clock "seconds"; any
+failure exits non-zero. build, kernels, kernel_bench and reference run
+alone; then the protocol's data is written and the phases from deep down
+run as lanes, spawned processes on the same card, at most LANE_WIDTH at
+once, longest first (deep, protocol, stream, onthefly, quality_guards,
+paperscale, tp_scaling, mesh with owner_gather), beside this process's
+train, train_rows, train_sparse, multitask, eval, sampler and
+oracle_parity; a lane's lines print when it ends:
   build      compile csrc/*.cu with nvcc (one process per source, together)
   kernels    each fused-Adam kernel against its plain version at the main
              path's shapes, with its time, bytes, bound and the library
@@ -173,7 +180,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
              finite parameters, falling losses; macro AUC and APR within
              0.01 of JAX CPU's on the same data from the same init, and of
              the float64 oracle's wherever JAX CPU is
-  paperscale (in a spawned process, beside oracle_parity's host loops)
+  paperscale (a lane)
              the paper-scale protocol (experiments/paperscale.py and
              onthefly_paperscale.py) at the full bio graph (scale 114):
              100,320 nodes, 11,313,366 edges, 565,665 held out and the
@@ -188,8 +195,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
              per step and peak memory; fused_adam_leaf_sr and scatter_rows
              at the [100320, 128] bf16 table bit for bit against their
              plain versions, timed beside bound and library call
-Then the card's name and power limit, the {"kernels": [...]} line, and the
-last line {"ok": true, "device": {...}}.
+  quality_guards
+             (a lane) the three quality guards of bench.py's headline
+             (experiments/bf16_quality.py, storage_quality.py,
+             onthefly_quality.py) through each script's run at its --quick
+             sizes with every arm (float32 / bfloat16 compute; fp32 /
+             bf16 storage and compute; pool / onthefly rel, node, edge),
+             the multitask phase two rounds long: exact launches per arm,
+             finite losses, a falling 1p burn-in, the intersection
+             structures' last-round loss below their loss at the starting
+             point, reports with the JAX scripts' keys; fused_adam_leaf and
+             scatter_rows at the guards' float32 [3520,128] table and
+             fused_adam_leaf_sr at the bf16 [10560,128] table, bit for bit
+             against their plain versions, timed beside bound and library
+Then {"total_s": ..., "phase_seconds": {...}, "lanes": {...}} (the whole
+script's host seconds, each phase's, each lane's start and end), the
+card's name and power limit, the {"kernels": [...]} line, and the last
+line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -199,6 +221,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 CHUNK = 100
@@ -209,8 +232,203 @@ def check(cond, msg):
         raise RuntimeError(msg)
 
 
+_EMIT_LOCK = threading.Lock()
+# in a lane's process (run_lanes): the lines it emits, printed by the main
+# process when the lane ends
+_LANE_LINES: list[str] | None = None
+# the host clock at each phase's previous line, and at the start of the
+# phase that timed() runs now
+_MARKS: dict[str, float] = {}
+_T_START = time.perf_counter()
+_PHASE_T0 = [_T_START]
+# host seconds of each phase that timed() ran in this process
+PHASE_SECONDS: dict[str, float] = {}
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """One JSON line. A phase line gets "seconds" unless it has its own:
+    the host-clock seconds since that phase's previous line (or since the
+    start of the phase that runs)."""
+    ph = obj.get("phase")
+    if ph is not None:
+        now = time.perf_counter()
+        if "seconds" not in obj:
+            obj = {**obj, "seconds": now - _MARKS.get(ph, _PHASE_T0[0])}
+        _MARKS[ph] = now
+    line = json.dumps(obj)
+    if _LANE_LINES is not None:
+        _LANE_LINES.append(line)
+        print(f"[lane] {line[:300]}", file=sys.stderr, flush=True)
+        return
+    with _EMIT_LOCK:
+        print(line, flush=True)
+
+
+# the lanes of this run (main): a phase of the main process starts only
+# while no lane has failed
+_LANES: list = []
+
+
+def timed(name: str, fn, *args):
+    """fn(*args) as phase `name`: its lines' seconds count from here, and
+    its host seconds go into PHASE_SECONDS."""
+    for lanes in _LANES:
+        lanes.raise_if_failed()
+    t0 = _PHASE_T0[0] = _MARKS[name] = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    return out
+
+
+def _lane_main(conn, name: str, fn_name: str, args) -> None:
+    """A lane's process: fn_name(*args) as phase `name` on cuda:0, its
+    result, its lines and its seconds sent back on conn. Its own process
+    group (the main process ends it whole on a failure) and the kernel's
+    parent-death signal (it ends with the main process)."""
+    global _LANE_LINES
+    import ctypes
+    import signal
+    import traceback
+
+    os.setpgrp()
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)  # PR_SET_PDEATHSIG
+    os.dup2(2, 1)   # stray prints of the phase go to stderr, never mid-line
+    _LANE_LINES = []
+    t0 = time.perf_counter()
+    try:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        msg = ("ok", timed(name, globals()[fn_name], *args))
+    except Exception:  # noqa: BLE001  (sent to the main process)
+        msg = ("error", f"lane {name}:\n{traceback.format_exc()}")
+    try:
+        conn.send((*msg, _LANE_LINES, time.perf_counter() - t0))
+    except Exception:  # noqa: BLE001  (an unpicklable result)
+        conn.send(("error", f"lane {name}: result not sent:\n"
+                   f"{traceback.format_exc()}", _LANE_LINES,
+                   time.perf_counter() - t0))
+    conn.close()
+
+
+# lanes at once beside the main process (main): the card and the host's 8
+# cores hold the longest lanes and the main process's own phases together
+LANE_WIDTH = 4
+# seconds into the script after which main stops waiting for a lane and
+# fails, ending every lane: under the script's 1,200 s budget, so a hung
+# lane ends the run with its name rather than at the outer time limit
+LANE_DEADLINE_S = 1100
+
+
+class Lanes:
+    """Phases in spawned processes on the same card, at most `width` at
+    once, in the order submitted, beside whatever the main process runs:
+    the train paths leave the card idle most of the time (host-bound), so
+    lanes share it. Each lane's lines are printed when it ends; get(name)
+    waits for its result; the first failure ends every running lane."""
+
+    def __init__(self, width: int, t_script: float):
+        import multiprocessing
+
+        self.ctx = multiprocessing.get_context("spawn")
+        self.width, self.t_script = width, t_script
+        self.pending: list = []
+        self.running: dict = {}
+        self.results: dict = {}
+        self.errors: dict = {}
+        self.spans: dict = {}
+        self.closed = False
+        self.cv = threading.Condition()
+        self.thread = threading.Thread(target=self._loop, daemon=True)
+        self.thread.start()
+
+    def submit(self, name: str, fn_name: str, *args) -> None:
+        with self.cv:
+            self.pending.append((name, fn_name, args))
+            self.cv.notify_all()
+
+    def _start(self, name, fn_name, args):
+        recv, send = self.ctx.Pipe(duplex=False)
+        proc = self.ctx.Process(target=_lane_main, name=f"lane-{name}",
+                                args=(send, name, fn_name, args))
+        proc.start()
+        send.close()
+        self.running[name] = (proc, recv, time.perf_counter())
+
+    def _loop(self):
+        from multiprocessing.connection import wait
+
+        while True:
+            with self.cv:
+                if self.closed:
+                    return
+                while (self.pending and len(self.running) < self.width
+                       and not self.errors):
+                    self._start(*self.pending.pop(0))
+                conns = {r[1]: n for n, r in self.running.items()}
+                if not conns:
+                    self.cv.wait(timeout=0.5)
+                    continue
+            for c in wait(list(conns), timeout=0.5):
+                name = conns[c]
+                try:
+                    status, payload, lines, secs = c.recv()
+                except EOFError:
+                    status, payload, lines, secs = (
+                        "error", f"lane {name}: its process ended without a "
+                        "result", [], None)
+                proc, _, t0 = self.running[name]
+                proc.join(timeout=60)
+                with _EMIT_LOCK:
+                    for line in lines:
+                        print(line, flush=True)
+                with self.cv:
+                    del self.running[name]
+                    self.spans[name] = {
+                        "start_s": t0 - self.t_script,
+                        "end_s": time.perf_counter() - self.t_script,
+                        "seconds": secs}
+                    if status == "ok":
+                        self.results[name] = payload
+                    else:
+                        self.errors[name] = payload
+                    self.cv.notify_all()
+
+    def raise_if_failed(self) -> None:
+        with self.cv:
+            if self.errors:
+                raise RuntimeError("; ".join(self.errors.values()))
+
+    def get(self, name: str, deadline: float):
+        """The lane's result once it ends; raises on any lane's failure,
+        or when the host clock passes `deadline` first."""
+        with self.cv:
+            while name not in self.results and not self.errors:
+                if time.perf_counter() > deadline:
+                    raise RuntimeError(
+                        f"lane {name} still running "
+                        f"{time.perf_counter() - self.t_script:.0f} s into "
+                        f"the script (running: {sorted(self.running)})")
+                self.cv.wait(timeout=1.0)
+            if self.errors:
+                raise RuntimeError("; ".join(self.errors.values()))
+            return self.results[name]
+
+    def close(self) -> None:
+        """Ends the loop and every lane still running, its children too."""
+        import signal
+
+        with self.cv:
+            self.closed = True
+            self.pending.clear()
+            for proc, _, _ in self.running.values():
+                try:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+                proc.join(timeout=30)
+        self.thread.join(timeout=10)
 
 
 def reset_counts():
@@ -4062,25 +4280,6 @@ def profile_chunk(chunk, i0, ms_per_step):
                      "calls_per_step": c / steps} for us, k, c in rows[:15]]}
 
 
-def protocol_phases(dev, card: str, work: dict, profile: bool = False
-                    ) -> tuple[dict, dict, dict, dict, dict]:
-    """The protocol's data directory, written once, then the phases that
-    read it: protocol, onthefly, deep and stream. Returns their results and
-    the data's summary (with the Python sampler's seconds)."""
-    import tempfile
-    from pathlib import Path
-
-    with tempfile.TemporaryDirectory() as tmp:
-        data = Path(tmp) / "data"
-        t0 = time.perf_counter()
-        info = write_protocol_data(data)
-        emit({"phase": "protocol", "step": "data", **info,
-              "seconds": time.perf_counter() - t0})
-        return (phase_protocol(card, data), phase_onthefly(card, data, profile),
-                phase_deep(dev, card, data, work), phase_stream(dev, card, data, work),
-                info)
-
-
 # The oracle-parity bar (graphqembed_tpu_torch/experiments/oracle_parity.py
 # at its defaults: per family 8,000 train + 400 val queries per structure
 # from the native sampler, 12,000 float32 steps of the host loop from the
@@ -4646,14 +4845,166 @@ def phase_paperscale(dev, card: str) -> dict:
     return out
 
 
-def paperscale_child(card: str) -> dict:
-    """phase_paperscale on cuda:0 in a spawned process (main runs it beside
-    the oracle bar): its launch counts are this process's own."""
+def phase_with_workload(fn_name: str, dev, card: str, data) -> dict:
+    """fn_name(dev, card, data, bench_workload()) in a lane, which builds
+    its own bench workload (its pools live on this process's card)."""
+    return globals()[fn_name](dev, card, data, bench_workload())
+
+
+# phase quality_guards: the three quality guards of bench.py's headline
+# (experiments/bf16_quality.py, storage_quality.py, onthefly_quality.py) at
+# their --quick sizes, each run's steps and burn-in set so that the
+# multitask phase takes two rounds (bf16 and storage: 600 + 2 x 1,400; the
+# onthefly guard: 600 + 2 x 700): the loss gate reads the last round, whose
+# intersection operators have trained for a round already
+GUARD_STEPS = {"bf16_quality": (3400, 600), "storage_quality": (3400, 600),
+               "onthefly_quality": (2000, 600)}
+# the report keys of the JAX scripts (experiments/*.py)
+GUARD_KEYS = {
+    "bf16_quality": {"graph", "config", "float32", "bfloat16",
+                     "macro_auc_delta", "throughput_ratio"},
+    "storage_quality": {"graph", "config", "fp32", "bf16_storage_compute",
+                        "macro_auc_delta", "macro_hard_auc_delta",
+                        "throughput_ratio"},
+    "onthefly_quality": {"pool", "onthefly-rel", "onthefly-node",
+                         "onthefly-edge"}}
+GUARD_ARM_KEYS = {"bf16_quality": {"auc", "queries_per_sec", "steps"},
+                  "storage_quality": {"auc", "hard_auc", "queries_per_sec",
+                                      "steps"},
+                  "onthefly_quality": {"val_auc", "val_auc_hard", "val_apr",
+                                       "train_s", "qps"}}
+# the guards' tables at their full sizes: scale 4 (3,520 nodes, float32
+# in bf16_quality and storage_quality's fp32 arm) and scale 12 (10,560
+# nodes, bf16 in every arm of onthefly_quality)
+GUARD_TABLES = {"float32": (3520, 128), "bfloat16": (10560, 128)}
+
+
+def phase_quality_guards(dev, card: str) -> dict:
+    """The three quality guards through each script's `run` on the card at
+    its --quick sizes (GUARD_STEPS), every arm and every anchor
+    distribution, results written to a temporary directory: per arm the
+    counts set to 0 just before its training and the exact launches after
+    it (fused_adam_leaf 4 a step under float32 storage, 3 under bf16;
+    fused_adam_leaf_sr 1 a step under bf16; scatter_rows 1 a step), finite
+    losses, a falling 1p burn-in loss and the intersection structures'
+    mean loss in the last multitask round below their mean loss at the
+    starting point (guards.loss_summary); each report with the JAX
+    script's keys. Then the kernels at the guards'
+    full table shapes against their plain versions, bit for bit, timed
+    beside bound and library call: fused_adam_leaf and scatter_rows (2,560
+    seeded ids, a 3i batch's count) on the float32 [3520, 128] table,
+    fused_adam_leaf_sr on the bf16 [10560, 128] table."""
+    import importlib
+    import tempfile
+
     import torch
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return phase_paperscale(torch.device("cuda"), card)
+    from graphqembed_tpu_torch.experiments.kernel_bench import scatter_cost
+    from graphqembed_tpu_torch.ops import fused_adam as fa
+    from graphqembed_tpu_torch.ops import grads
+
+    out, failed = {"card": card, "runs": {}}, []
+    quiet = lambda *a: print(*a, file=sys.stderr, flush=True)  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        for stem, (steps, burn) in GUARD_STEPS.items():
+            mod = importlib.import_module(
+                f"graphqembed_tpu_torch.experiments.{stem}")
+            args = mod.parse_args(["--quick", "--out", f"{tmp}/{stem}"])
+            args.steps, args.burn_in = steps, burn
+            t0 = time.perf_counter()
+            got = mod.run(args, echo=quiet)
+            rep, runs = got["report"], {}
+            check(rep is not None and GUARD_KEYS[stem] <= set(rep),
+                  f"{stem}: report keys {sorted(rep or {})}")
+            check(os.path.exists(f"{tmp}/{stem}_h100.json"),
+                  f"{stem}: no results at {tmp}/{stem}_h100.json")
+            for arm, row in got["rows"].items():
+                check(GUARD_ARM_KEYS[stem] <= set(rep[arm]),
+                      f"{stem} {arm}: keys {sorted(rep[arm])}")
+                n = row["steps"]
+                bf16 = (stem == "onthefly_quality"
+                        or arm == "bf16_storage_compute")
+                want = want_counts(fused_adam_leaf=(3 if bf16 else 4) * n,
+                                   fused_adam_leaf_sr=n if bf16 else 0,
+                                   scatter_rows=n)
+                if row["launches"] != want:
+                    failed.append(f"{stem} {arm}: launches {row['launches']}, "
+                                  f"want {want}")
+                loss = row["losses"]
+                if not (loss["finite"] and loss["fell"]):
+                    failed.append(f"{stem} {arm}: losses {loss}")
+                auc = row["auc" if "auc" in row else "val_auc"]["macro"]
+                runs[arm] = {"steps": n, "launches": row["launches"],
+                             "losses": loss, "macro_auc": auc,
+                             "ms_per_step": row["ms_per_step"]}
+            out["runs"][stem] = {"seconds": time.perf_counter() - t0,
+                                 "arms": runs, **{k: rep[k] for k in rep
+                                                  if k.endswith("delta")
+                                                  or k == "deltas"}}
+    emit({"phase": "quality_guards", "step": "runs", **out})
+
+    gen = torch.Generator().manual_seed(16)
+    lr = 0.03
+
+    def rnd(shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def adam_state(shape, dtype=torch.float32):
+        return [x.to(dtype) for x in
+                (rnd(shape), rnd(shape, 0.01), rnd(shape, 1e-3).abs())]
+
+    f32 = GUARD_TABLES["float32"]
+    leaf = adam_leaf_exact(f32, rnd, adam_state, lr)
+    out["fused_adam_leaf"] = {**leaf, **adam_leaf_timing(dev, f32, rnd,
+                                                         adam_state, lr)}
+    n, d = f32
+    ids = torch.randint(0, n, (2560,), generator=gen).to(dev)
+    ct = rnd((2560, d), 0.01)
+    got, want = grads.scatter_rows(n, ids, ct), grads.scatter_rows_plain(n, ids, ct)
+    torch.cuda.synchronize(dev)
+    check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+          f"scatter_rows differs from plain on the guards' table {f32}")
+    zero = torch.zeros(f32, device=dev)
+    b_ms, b_by = bound(*scatter_cost(n, 2560, d, 4))
+    out["scatter_rows"] = {
+        "shape": list(f32), "length": 2560, "dtype": "torch.float32",
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": device_ms(lambda: grads.scatter_rows(n, ids, ct)),
+        "plain_ms": device_ms(lambda: grads.scatter_rows_plain(n, ids, ct),
+                              reps=5),
+        "library_ms": device_ms(lambda: zero.index_add_(0, ids, ct)),
+        "zeros_index_add_ms": device_ms(
+            lambda: torch.zeros(f32, device=dev).index_add_(0, ids, ct)),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+    bf = GUARD_TABLES["bfloat16"]
+    base = adam_state(bf, torch.bfloat16)
+    g = rnd(bf, 0.01).bfloat16()
+    k, q = [x.clone() for x in base], [x.clone() for x in base]
+    fa.fused_adam_leaf_sr(k[0], g, k[1], k[2], 3, 15, lr)
+    fa.fused_adam_leaf_sr_plain(q[0], g, q[1], q[2], 3, 15, lr)
+    torch.cuda.synchronize(dev)
+    check(all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+              for a, b in zip(k, q)),
+          f"fused_adam_leaf_sr differs from plain on the guards' table {bf}")
+    p_, mu, nu = k
+    numel = bf[0] * bf[1]
+    b_ms, b_by = bound(14 * numel, 62 * numel)
+    sr_fn = lambda: fa.fused_adam_leaf_sr(p_, g, mu, nu, 5, 23, lr)  # noqa: E731
+    out["fused_adam_leaf_sr"] = {
+        "shape": list(bf), "max_abs_err": max(
+            float((a.float() - b.float()).abs().max()) for a, b in zip(k, q)),
+        "ms": device_ms(sr_fn), "call_ms": time_ms(sr_fn),
+        "plain_ms": device_ms(lambda: fa.fused_adam_leaf_sr_plain(
+            p_, g, mu, nu, 5, 23, lr), reps=5),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+    emit({"phase": "quality_guards", "step": "kernels", "card": card,
+          "tolerance": "bit-exact",
+          **{k: out[k] for k in ("fused_adam_leaf", "scatter_rows",
+                                 "fused_adam_leaf_sr")},
+          "failed": failed})
+    check(not failed, "quality_guards: " + "; ".join(failed))
+    return out
 
 
 def _untrained_losses(cfg, schema, dg, dev) -> dict:
@@ -4685,6 +5036,9 @@ def _untrained_losses(cfg, schema, dg, dev) -> dict:
 
 
 def main(argv):
+    import tempfile
+    from pathlib import Path
+
     import torch
 
     if not torch.cuda.is_available():
@@ -4698,33 +5052,58 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_script = _T_START
     card = card_name_and_power()
-    phase_build()
-    work = bench_workload()
-    kern = phase_kernels(dev, work)
-    kb = phase_kernel_bench(dev)
-    phase_reference(dev)
-    launches, trained = phase_train(dev, "--profile" in argv, card, work)
-    rows_launches, _ = phase_train_rows(dev, "--profile" in argv, card, work,
-                                        trained["train_qps"])
-    phase_train_sparse(dev, card, work)
-    phase_multitask(dev, card, work)
-    mesh = phase_mesh(card, owner=True)
+    profile = "--profile" in argv
+    timed("build", phase_build)
+    work = timed("workload", bench_workload)
+    kern = timed("kernels", phase_kernels, dev, work)
+    kb = timed("kernel_bench", phase_kernel_bench, dev)
+    timed("reference", phase_reference, dev)
+    # The train paths are host-bound (the card idle 89-96% of a step), so
+    # from here the phases run in LANE_WIDTH lanes, processes of their own
+    # on the same card, longest first, beside this process's own phases:
+    # the kernel timings above ran alone, the times below share the card
+    # and the host's cores (each line's seconds, the lanes' spans).
+    lanes = Lanes(LANE_WIDTH, t_script)
+    _LANES.append(lanes)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            data = Path(tmp) / "data"
+            info = timed("protocol_data", write_protocol_data, data)
+            emit({"phase": "protocol", "step": "data", **info,
+                  "seconds": PHASE_SECONDS["protocol_data"]})
+            lanes.submit("deep", "phase_with_workload", "phase_deep", dev,
+                         card, data)
+            lanes.submit("protocol", "phase_protocol", card, data)
+            lanes.submit("stream", "phase_with_workload", "phase_stream", dev,
+                         card, data)
+            lanes.submit("onthefly", "phase_onthefly", card, data, profile)
+            lanes.submit("quality_guards", "phase_quality_guards", dev, card)
+            lanes.submit("paperscale", "phase_paperscale", dev, card)
+            lanes.submit("tp_scaling", "phase_tp_scaling", dev, card)
+            lanes.submit("mesh", "phase_mesh", card, True)
+            launches, trained = timed("train", phase_train, dev, profile,
+                                      card, work)
+            rows_launches, _ = timed("train_rows", phase_train_rows, dev,
+                                     profile, card, work, trained["train_qps"])
+            timed("train_sparse", phase_train_sparse, dev, card, work)
+            timed("multitask", phase_multitask, dev, card, work)
+            eval_launches = timed("eval", phase_eval, trained, card)
+            bar = timed("sampler", phase_sampler, dev, card,
+                        info["python_sample_s"])
+            oracle = timed("oracle_parity", phase_oracle_parity, dev, card, bar)
+            protocol, onthefly, deep, stream, guards, paper, tp, mesh = (
+                lanes.get(name, t_script + LANE_DEADLINE_S) for name in (
+                    "protocol", "onthefly", "deep", "stream",
+                    "quality_guards", "paperscale", "tp_scaling", "mesh"))
+    finally:
+        lanes.close()
     owner = mesh["owner_gather"]
-    tp = phase_tp_scaling(dev, card)
-    eval_launches = phase_eval(trained, card)
-    protocol, onthefly, deep, stream, protocol_data = protocol_phases(
-        dev, card, work, "--profile" in argv)
-    bar = phase_sampler(dev, card, protocol_data["python_sample_s"])
-    # the oracle bar's host loops leave the card and most cores idle: the
-    # paper-scale phase runs beside them in a spawned process
-    import multiprocessing
-    with multiprocessing.get_context("spawn").Pool(1) as pool:
-        paper_run = pool.apply_async(paperscale_child, (card,))
-        oracle = phase_oracle_parity(dev, card, bar)
-        # a child that dies leaves its result unset: bound the wait
-        paper = paper_run.get(timeout=900)
-
+    seconds = {**PHASE_SECONDS, **{n: s["seconds"]
+                                   for n, s in lanes.spans.items()}}
+    emit({"total_s": time.perf_counter() - t_script, "phase_seconds": seconds,
+          "lane_width": LANE_WIDTH, "lanes": lanes.spans})
     print(card, flush=True)
 
     def oracle_keys(name):
@@ -4777,6 +5156,17 @@ def main(argv):
         row["launches_paperscale"] = paper_launches(row["name"])
     # phase paperscale: the SR kernel at the paper-scale bf16 table
     kernels[1]["paperscale_table"] = paper["fused_adam_leaf_sr"]
+
+    def guard_launches(name):
+        """Phase quality_guards' launches of `name` per guard and arm."""
+        return {stem: {arm: r["launches"][name] for arm, r in g["arms"].items()}
+                for stem, g in guards["runs"].items()}
+
+    # phase quality_guards: the guards' runs, and each kernel at the guards'
+    # full table shapes
+    for row in kernels:
+        row["launches_quality_guards"] = guard_launches(row["name"])
+        row["quality_guards_table"] = guards[row["name"]]
     def mesh_launches(name):
         """Phase mesh's launches of `name` in its sharded runs: (b) the
         host-batch steps, (c) run_train_device_mega, (e) its resume, (d)
@@ -4827,6 +5217,9 @@ def main(argv):
          "launches_deep": deep_launches["scatter_rows"],
          "launches_stream": stream_launches("scatter_rows"),
          "launches_paperscale": paper_launches("scatter_rows"),
+         "launches_quality_guards": guard_launches("scatter_rows"),
+         # phase quality_guards: 2,560 ids on the guards' float32 table
+         "quality_guards_table": guards["scatter_rows"],
          # phase paperscale: a 3i batch's ids on the [100320, 128] table
          "paperscale_table": paper["scatter_rows"],
          "launches_mesh": mesh_launches("scatter_rows"),

@@ -183,7 +183,9 @@ def run_row(name: str, cfg: GQEConfig, schema, params: dict, data: dict,
     the per-structure and macro AUC, hard AUC and APR, the train and wall
     seconds, ms per step, q/s and the kernel launches of the training."""
     dev = resolve_device(device)
-    p = to_device(params, dev)
+    # a copy: on the CPU .to() would hand the caller's tensors to the
+    # in-place optimizer
+    p = to_device(tree_map(lambda x: x.detach().clone(), params), dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     if name == "device":
