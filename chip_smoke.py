@@ -15,8 +15,9 @@ Phases, each printing JSON lines with their host-clock "seconds"; any
 failure exits non-zero. build, kernels, kernel_bench and reference run
 alone; then the protocol's data is written and the phases from deep down
 run as lanes, spawned processes on the same card, at most LANE_WIDTH at
-once, longest first (deep, protocol, stream, onthefly, quality_guards,
-paperscale, tp_scaling, mesh with owner_gather), beside this process's
+once, longest first (deep, bench, protocol, stream, onthefly,
+quality_guards, paperscale, tp_scaling, mesh with owner_gather), beside
+this process's
 train, train_rows, train_sparse, multitask, eval, sampler and
 oracle_parity; a lane's lines print when it ends:
   build      compile csrc/*.cu with nvcc (one process per source, together)
@@ -58,6 +59,14 @@ oracle_parity; a lane's lines print when it ends:
   multitask  run_train_device on all 7 structures of the bench graph (300
              queries each), rows_grad_update=True: 100 burn-in steps on 1p,
              then 700 steps in two rounds of 50-step chunks
+  bench      (a lane) gqe-torch-bench (cli/bench.py, bench.py's harness on
+             the port) on the bench workload: its six variants (fp32 /
+             bf16 storage x dense / sparse Adam, bf16 compute alone,
+             bf16 onthefly) with windows of 100, 600 and 1,100 steps twice
+             (bench.py's 2,000 / 12,000 / 22,000 cut), Theil-Sen q/s per
+             variant, every pairwise slope > 0, finite losses, launches per
+             chunk exact (BENCH_LAUNCHES); the eager oracle baseline on the
+             host CPU (8 steps); the JSON line with bench.py's keys
   mesh       the data-parallel mesh (parallel/) at world size 1: a child
              process started by spawn_on_mesh in an NCCL group (file://
              rendezvous) holds, bit for bit, float32: make_sharded_train_step
@@ -938,24 +947,17 @@ def phase_reference(dev):
 
 
 def bench_workload():
-    """The JAX bench.py workload (bench.py:23-34): bio-synth graph at scale
+    """The JAX bench.py workload (bench.py:23-34) through the port's
+    gqe-torch-bench (cli/bench.py::build_workload): bio-synth graph at scale
     40 (35,200 nodes), 1,500 2p + 1,500 3i queries, bilinear/min, d=128,
     B=512; cfg is its bf16-storage-and-compute variant."""
-    import numpy as np
-
-    from graphqembed_tpu_torch.config import GQEConfig
-    from graphqembed_tpu_torch.data.sampling import QuerySampler
-    from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
+    from graphqembed_tpu_torch.cli.bench import build_workload
     from graphqembed_tpu_torch.training.device_data import DeviceTrainData
 
     t0 = time.perf_counter()
-    graph = synthetic_graph(seed=0, scale=40.0, avg_degree=10.0)
-    cfg32 = GQEConfig(embed_dim=128, projection="bilinear", intersection="min",
-                      batch_size=512, lr=0.01)
+    graph, cfg32, queries = build_workload()
     cfg = dataclasses.replace(cfg32, compute_dtype="bfloat16",
                               storage_dtype="bfloat16")
-    sampler = QuerySampler(graph, np.random.default_rng(0), max_negs=30)
-    queries = sampler.sample_many("2p", 1500) + sampler.sample_many("3i", 1500)
     data = DeviceTrainData(graph.schema, queries)
     check(graph.schema.n_nodes == 35200, graph.schema.n_nodes)
     return {"graph": graph, "cfg32": cfg32, "cfg": cfg, "queries": queries,
@@ -1230,6 +1232,92 @@ def phase_multitask(dev, card: str, work: dict):
           "steps": total, "burn_in_steps": burn, "chunk": chunk,
           "train_qps_wall": cfg.batch_size * total / wall,
           "losses": losses, "launches": launches})
+
+
+# phase bench: gqe-torch-bench (graphqembed_tpu_torch/cli/bench.py) on the
+# bench workload with its smallest timed window cut from 2,000 steps to
+# BENCH_STEPS: windows of 100, 600 and 1,100 steps twice after a 100-step
+# warm-up, 3,700 steps a variant; the oracle at bench.py's 8 steps
+BENCH_STEPS = 100
+# launches a step of each variant, from the code: every dense step updates
+# the float32 leaves with fused_adam_leaf (proj/W, inter/pre, inter/post;
+# the table too under float32 storage) and the bf16 table with
+# fused_adam_leaf_sr, and its one table gather (take_rows) backs into one
+# scatter_rows; the sparse steps take row gradients from their gathered rows
+# (no scatter_rows) and update the table with lazy sparse Adam in plain
+# PyTorch. A chunk of bench.CHUNK = 100 steps launches 100 times these.
+BENCH_LAUNCHES = {
+    "fp32-dense": {"fused_adam_leaf": 4, "scatter_rows": 1},
+    "fp32-sparse": {"fused_adam_leaf": 3},
+    "bf16-dense-fused": {"fused_adam_leaf": 3, "fused_adam_leaf_sr": 1,
+                         "scatter_rows": 1},
+    "bf16-compute-only": {"fused_adam_leaf": 4, "scatter_rows": 1},
+    "bf16-sparse": {"fused_adam_leaf": 3},
+    "bf16-onthefly": {"fused_adam_leaf": 4, "scatter_rows": 1},
+}
+# the keys of bench.py's JSON line (bench.py:302-312)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "variants"}
+
+
+def phase_bench(dev, card: str) -> dict:
+    """Every variant of gqe-torch-bench through its own functions
+    (bench_pool, bench_onthefly, bench_oracle, result_line) on the bench
+    workload, BENCH_STEPS for the smallest window: each variant's q/s
+    finite and > 0, every pairwise slope > 0, every chunk's loss finite,
+    the launches exact (BENCH_LAUNCHES per step, counted from 0 around each
+    variant); the oracle's q/s on the host's CPU; the JSON line with
+    bench.py's keys and variant names."""
+    import math
+
+    import numpy as np
+
+    from graphqembed_tpu_torch.cli import bench
+
+    work = bench_workload()
+    graph, cfg32, queries = work["graph"], work["cfg32"], work["queries"]
+    emit({"phase": "bench", "step": "workload", "setup_s": work["setup_s"]})
+    runs = [(name, lambda v=v, sp=sp: bench.bench_pool(
+                graph, v, work["data"], sp, BENCH_STEPS, bench.WARMUP_STEPS,
+                dev)) for name, v, sp in bench._variants(cfg32)]
+    runs.append(("bf16-onthefly", lambda: bench.bench_onthefly(
+        graph, bench.onthefly_config(cfg32), BENCH_STEPS, bench.WARMUP_STEPS,
+        dev)))
+    variants, failed = {}, []
+    for name, fn in runs:
+        reset_counts()
+        t = fn()
+        launches = read_counts()
+        steps = len(t.losses) * bench.CHUNK
+        want = want_counts(**{k: n * steps
+                              for k, n in BENCH_LAUNCHES[name].items()})
+        row = {"qps": t.qps, "ms_per_step": t.slope_s * 1e3,
+               "points": t.points, "min_slope_ms": min(t.slopes) * 1e3,
+               "steps": steps, "chunks": len(t.losses),
+               "loss_first": t.losses[0], "loss_last": t.losses[-1],
+               "launches": launches}
+        variants[name] = row
+        emit({"phase": "bench", "variant": name, "card": card, **row})
+        if not (math.isfinite(t.qps) and t.qps > 0):
+            failed.append(f"{name}: q/s {t.qps}")
+        if not all(x > 0 for x in t.slopes):
+            failed.append(f"{name}: slopes {t.slopes}")
+        if not all(np.isfinite(t.losses)):
+            failed.append(f"{name}: losses not finite")
+        if launches != want:
+            failed.append(f"{name}: launches {launches}, want {want}")
+    oracle_qps = bench.bench_oracle(graph, cfg32, queries, bench.ORACLE_STEPS)
+    line = bench.result_line({k: v["qps"] for k, v in variants.items()},
+                             oracle_qps)
+    if set(line) != BENCH_KEYS:
+        failed.append(f"line keys {sorted(line)}")
+    if tuple(line["variants"]) != bench.VARIANT_NAMES:
+        failed.append(f"variant names {list(line['variants'])}")
+    if not (math.isfinite(oracle_qps) and oracle_qps > 0):
+        failed.append(f"oracle q/s {oracle_qps}")
+    emit({"phase": "bench", "card": card, "window_steps": BENCH_STEPS,
+          "oracle_qps": oracle_qps, "line": line, "failed": failed})
+    check(not failed, "bench: " + "; ".join(failed))
+    return {"variants": variants, "oracle_qps": oracle_qps, "line": line}
 
 
 # The mesh phase (parallel/): the data-parallel path at one NCCL rank against
@@ -5075,6 +5163,7 @@ def main(argv):
                   "seconds": PHASE_SECONDS["protocol_data"]})
             lanes.submit("deep", "phase_with_workload", "phase_deep", dev,
                          card, data)
+            lanes.submit("bench", "phase_bench", dev, card)
             lanes.submit("protocol", "phase_protocol", card, data)
             lanes.submit("stream", "phase_with_workload", "phase_stream", dev,
                          card, data)
@@ -5093,10 +5182,12 @@ def main(argv):
             bar = timed("sampler", phase_sampler, dev, card,
                         info["python_sample_s"])
             oracle = timed("oracle_parity", phase_oracle_parity, dev, card, bar)
-            protocol, onthefly, deep, stream, guards, paper, tp, mesh = (
+            (protocol, onthefly, deep, stream, guards, paper, tp, mesh,
+             bench) = (
                 lanes.get(name, t_script + LANE_DEADLINE_S) for name in (
                     "protocol", "onthefly", "deep", "stream",
-                    "quality_guards", "paperscale", "tp_scaling", "mesh"))
+                    "quality_guards", "paperscale", "tp_scaling", "mesh",
+                    "bench"))
     finally:
         lanes.close()
     owner = mesh["owner_gather"]
@@ -5162,11 +5253,16 @@ def main(argv):
         return {stem: {arm: r["launches"][name] for arm, r in g["arms"].items()}
                 for stem, g in guards["runs"].items()}
 
+    def bench_launches(name):
+        """Phase bench's launches of `name` per variant."""
+        return {v: r["launches"][name] for v, r in bench["variants"].items()}
+
     # phase quality_guards: the guards' runs, and each kernel at the guards'
     # full table shapes
     for row in kernels:
         row["launches_quality_guards"] = guard_launches(row["name"])
         row["quality_guards_table"] = guards[row["name"]]
+        row["launches_bench"] = bench_launches(row["name"])
     def mesh_launches(name):
         """Phase mesh's launches of `name` in its sharded runs: (b) the
         host-batch steps, (c) run_train_device_mega, (e) its resume, (d)
@@ -5218,6 +5314,7 @@ def main(argv):
          "launches_stream": stream_launches("scatter_rows"),
          "launches_paperscale": paper_launches("scatter_rows"),
          "launches_quality_guards": guard_launches("scatter_rows"),
+         "launches_bench": bench_launches("scatter_rows"),
          # phase quality_guards: 2,560 ids on the guards' float32 table
          "quality_guards_table": guards["scatter_rows"],
          # phase paperscale: a 3i batch's ids on the [100320, 128] table

@@ -26,7 +26,6 @@ from graphqembed_tpu.models import encoders as jenc
 from graphqembed_tpu.models import gqe as jgqe
 from graphqembed_tpu.models.params import init_params as jax_init_params
 from graphqembed_tpu.models.params import params_to_numpy as jax_to_numpy
-from graphqembed_tpu.oracle import torch_gqe
 from graphqembed_tpu_torch.config import GQEConfig
 from graphqembed_tpu_torch.graph.synthetic import synthetic_graph
 from graphqembed_tpu_torch.models import encoders as tenc
@@ -38,6 +37,7 @@ from graphqembed_tpu_torch.models.params import (
     tree_leaves,
     tree_paths,
 )
+from graphqembed_tpu_torch.oracle import torch_gqe
 
 RTOL, ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-6
@@ -101,7 +101,7 @@ def test_sage_encode_matches_jax_and_oracle(setup, depth, aggregator):
                            torch.from_numpy(ids), depth=depth,
                            aggregator=aggregator).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
-    oracle = torch_gqe.sage_encode(jcfg, p_np, jt, ids, depth=depth,
+    oracle = torch_gqe.sage_encode(tcfg, p_np, tt, ids, depth=depth,
                                    aggregator=aggregator).numpy()
     np.testing.assert_allclose(got, oracle, rtol=RTOL, atol=ATOL)
 

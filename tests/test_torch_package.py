@@ -193,12 +193,14 @@ def test_entry_points_need_a_card_unless_asked_for_cpu(graph):
         assert call(device="cpu").steps >= 2
 
     # the CLIs: no quiet CPU run without --cpu
-    from graphqembed_tpu_torch.cli import evaluate, train
+    from graphqembed_tpu_torch.cli import bench, evaluate, train
 
     with pytest.raises(SystemExit, match="no CUDA device"):
         train.main(["--synthetic", "--synthetic_scale", "0.1"])
     with pytest.raises(SystemExit, match="no CUDA device"):
         evaluate.main(["--model_dir", "m", "--data_dir", "d"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        bench.main(["--probe"])
 
 
 def test_chip_smoke_fails_without_a_card():
