@@ -12,7 +12,7 @@ and imports nothing of it:
              intersection CUDA kernels with their plain PyTorch versions
              (csrc/ holds the sources)
   training/  the host loop and the device-resident drivers, checkpoints,
-             metrics, profiling helpers, eval (AUC/APR)
+             metrics, tracing, eval (AUC/APR)
   cli/       gqe-torch-train and gqe-torch-eval
   experiments/  the kernel bench on the card
 

@@ -249,8 +249,14 @@ def soft_and_scores(cfg: GQEConfig, params: Params, structure: str,
 
 def mask_denominator(row_mask: torch.Tensor,
                      dtype=torch.float32) -> torch.Tensor:
-    """The margin loss's divisor: the count of valid rows, at least 1."""
-    return torch.clamp_min(torch.sum(row_mask.to(dtype)), 1.0)
+    """The margin loss's divisor: the count of valid rows, at least 1.
+    The count goes to the port's row counter (training/profiling.py)."""
+    # imported here: the training package imports this module
+    from graphqembed_tpu_torch.training.profiling import count_rows
+
+    n_valid = torch.sum(row_mask.to(dtype))
+    count_rows(row_mask.numel(), n_valid)
+    return torch.clamp_min(n_valid, 1.0)
 
 
 def _masked_margin(cfg: GQEConfig, pos: torch.Tensor, neg: torch.Tensor,
@@ -449,18 +455,25 @@ def margin_loss_rows_onegather(cfg: GQEConfig, params: Params, structure: str,
     single dense table gradient; under encode_fn (the SAGE encoder) one
     call over [B, A+2] ids, whose gathers each carry all A+2 columns. The
     same value as margin_loss_rows; only the order of the table
-    gradient's sums differs."""
+    gradient's sums differs. Traced as the spans gqe.encode, gqe.operators
+    and gqe.score (training/profiling.py)."""
+    # imported here: the training package imports this module
+    from graphqembed_tpu_torch.training.profiling import span
+
     ids = torch.cat([anchors, targets[:, None], negs[:, None]], dim=1)
     a = anchors.shape[1]
-    if encode_fn is None:
-        rows = take_rows(params["table"], ids)          # [B, A+2, d]
-        normed = l2_normalize(rows.float())
-    else:
-        normed = encode_fn(ids).float()
-    q = embed_query_folded(cfg, params, structure, normed[:, :a], rels,
-                           inter_modes, tp)
-    pn = score(q, normed[:, a:], cfg.scoring)
-    return _masked_margin(cfg, pn[:, 0], pn[:, 1], row_mask, denom)
+    with span("gqe.encode"):
+        if encode_fn is None:
+            rows = take_rows(params["table"], ids)      # [B, A+2, d]
+            normed = l2_normalize(rows.float())
+        else:
+            normed = encode_fn(ids).float()
+    with span("gqe.operators"):
+        q = embed_query_folded(cfg, params, structure, normed[:, :a], rels,
+                               inter_modes, tp)
+    with span("gqe.score"):
+        pn = score(q, normed[:, a:], cfg.scoring)
+        return _masked_margin(cfg, pn[:, 0], pn[:, 1], row_mask, denom)
 
 
 def margin_loss_rows(cfg: GQEConfig, params: Params, structure: str,

@@ -1,5 +1,5 @@
 """Training: the host loop and the device-resident drivers, checkpoints,
-metrics, profiling helpers and evaluation (AUC/APR)."""
+metrics, tracing and evaluation (AUC/APR)."""
 
 from graphqembed_tpu_torch.training.eval import (  # noqa: F401
     auc_from_scores,
@@ -15,7 +15,6 @@ from graphqembed_tpu_torch.training.device_data import (  # noqa: F401
 )
 from graphqembed_tpu_torch.training.metrics import (  # noqa: F401
     MetricsWriter,
-    ThroughputMeter,
     setup_logging,
 )
 from graphqembed_tpu_torch.training.sparse_adam import init_lazy_adam, lazy_adam_update  # noqa: F401

@@ -60,6 +60,7 @@ from graphqembed_tpu_torch.training.loop import (
     resolve_queries,
     structure_weight,
 )
+from graphqembed_tpu_torch.training.profiling import span
 from graphqembed_tpu_torch.training.sparse_adam import lazy_adam_update
 
 POOL_FIELDS = ("anchors", "rels", "inter_modes", "targets", "negs",
@@ -406,9 +407,11 @@ def _train_body(cfg: GQEConfig, optimizer: FusedAdamOpt, structure: str,
             encode_fn=encode_fn)
         # a leaf the structure does not use (inter/* for chains) gets a zero
         # gradient, and Adam still decays its moments, as in JAX
-        grads = _grads_tree(params, torch.autograd.grad(
-            loss, leaves, allow_unused=True, materialize_grads=True))
-        params, opt_state = optimizer.apply(params, grads, opt_state)
+        with span("gqe.backward"):
+            grads = _grads_tree(params, torch.autograd.grad(
+                loss, leaves, allow_unused=True, materialize_grads=True))
+        with span("gqe.optimizer"):
+            params, opt_state = optimizer.apply(params, grads, opt_state)
         return (params, opt_state), loss.detach()
 
     return body

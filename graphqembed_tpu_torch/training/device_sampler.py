@@ -74,6 +74,7 @@ from graphqembed_tpu_torch.training.loop import (
     resolve_queries,
     structure_weight,
 )
+from graphqembed_tpu_torch.training.profiling import span
 
 _U30 = 1 << 30
 
@@ -536,20 +537,21 @@ def sample_dispatch(cfg: GQEConfig, dg: DeviceGraph, draw, structure: str,
     sampler call over T·B rows: anchors, rels, inter_modes, targets, negs
     (the hard negative on `_hard_step` steps under use_hard) and mask."""
     b = cfg.batch_size
-    (anchors, rels, modes, tgt, neg, hard_neg, _, mask) = \
-        sample_structure_batch(dg, draw, n_steps * b, structure,
-                               dist=cfg.onthefly_anchor_dist)
+    with span("gqe.sample"):
+        (anchors, rels, modes, tgt, neg, hard_neg, _, mask) = \
+            sample_structure_batch(dg, draw, n_steps * b, structure,
+                                   dist=cfg.onthefly_anchor_dist)
 
-    def steps(x):
-        return x.reshape((n_steps, b) + tuple(x.shape[1:]))
+        def steps(x):
+            return x.reshape((n_steps, b) + tuple(x.shape[1:]))
 
-    neg = steps(neg)
-    if use_hard:
-        hard = _hard_step(cfg, torch.arange(n_steps, device=dg.device))
-        neg = torch.where(hard[:, None], steps(hard_neg), neg)
-    return {"anchors": steps(anchors), "rels": steps(rels),
-            "inter_modes": steps(modes), "targets": steps(tgt), "negs": neg,
-            "mask": steps(mask)}
+        neg = steps(neg)
+        if use_hard:
+            hard = _hard_step(cfg, torch.arange(n_steps, device=dg.device))
+            neg = torch.where(hard[:, None], steps(hard_neg), neg)
+        return {"anchors": steps(anchors), "rels": steps(rels),
+                "inter_modes": steps(modes), "targets": steps(tgt),
+                "negs": neg, "mask": steps(mask)}
 
 
 def make_onthefly_train_step(cfg: GQEConfig, optimizer, dg: DeviceGraph,
@@ -592,16 +594,18 @@ def make_onthefly_train_step(cfg: GQEConfig, optimizer, dg: DeviceGraph,
 
     def run(params, opt_state, structure: str, generator: torch.Generator,
             n_steps: int, weight: float, use_hard: bool = False):
-        batch_xs = sample_dispatch(cfg, dg, torch_draw(generator), structure,
-                                   n_steps, use_hard)
-        if mesh is None:
-            body = _train_body(dense, optimizer, structure, weight, tables)
-        else:
-            body = sharded_body(dense, optimizer, mesh, structure, weight,
-                                tables)
-        (params, opt_state), losses = _scan(body, (params, opt_state),
-                                            batch_xs)
-        return params, opt_state, losses.mean()
+        with span("gqe.dispatch", structure=structure, steps=n_steps):
+            batch_xs = sample_dispatch(cfg, dg, torch_draw(generator),
+                                       structure, n_steps, use_hard)
+            if mesh is None:
+                body = _train_body(dense, optimizer, structure, weight,
+                                   tables)
+            else:
+                body = sharded_body(dense, optimizer, mesh, structure,
+                                    weight, tables)
+            (params, opt_state), losses = _scan(body, (params, opt_state),
+                                                batch_xs)
+            return params, opt_state, losses.mean()
 
     return run
 

@@ -1,7 +1,7 @@
 """Structured metrics: console/file logging, a JSONL event stream with
-optional TensorBoard scalars, and a wall-clock throughput meter (queries/s
-and edges/s traversed + scored). The same interface as the JAX package's
-`training/metrics.py`."""
+optional TensorBoard scalars, and the edges traversed + scored per query
+of each structure. The same interface as the JAX package's
+`training/metrics.py`, less its throughput meter."""
 
 from __future__ import annotations
 
@@ -66,23 +66,3 @@ class MetricsWriter:
         if self._tb is not None:
             self._tb.close()
 
-
-class ThroughputMeter:
-    """queries/s and edges/s (traversed + scored) since the last reset."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self):
-        self._t0 = time.perf_counter()
-        self._queries = 0
-        self._edges = 0
-
-    def update(self, structure: str, n_queries: int) -> None:
-        self._queries += n_queries
-        self._edges += n_queries * EDGES_PER_QUERY.get(structure, 3)
-
-    def rates(self) -> dict[str, float]:
-        dt = max(time.perf_counter() - self._t0, 1e-9)
-        return {"queries_per_sec": self._queries / dt,
-                "edges_per_sec": self._edges / dt}

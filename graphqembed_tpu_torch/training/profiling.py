@@ -1,22 +1,44 @@
-"""Profiling and timing helpers: a `torch.profiler` capture into a
-directory, a fenced Theil–Sen slope of per-step time, and a synchronized
-wall-clock timer. On the card the fence is `torch.cuda.synchronize()`
-followed by a host read of the result; on the CPU the read alone."""
+"""The port's tracing: a `torch.profiler` capture into a directory, the
+program's spans, and its row counter.
+
+Spans and the counter record only while a profiler is recording
+(`torch.autograd._profiler_enabled()`); otherwise `span` hands back one
+shared null context and `count_rows` returns at once, so an untraced step
+pays a gate check for each.
+
+Spans (`gqe.<layer>`, attributes appended to the name as ` key=value`):
+`gqe.dispatch` (structure, steps) around a call of
+`device_sampler.make_onthefly_train_step`'s run; inside it `gqe.sample`
+(`sample_dispatch`), and per step `gqe.encode`, `gqe.operators`,
+`gqe.score` (`models/gqe.py::margin_loss_rows_onegather`),
+`gqe.backward` and `gqe.optimizer` (`device_data._train_body`). A span is
+a profiler range of the kind the profiler gives an operator (`cpu_op`):
+unlike a `record_function` range it leaves no copy on the device's
+timeline, so the device intervals of a trace are the kernels, copies and
+sets alone.
+
+Counter (`counters()`): `rows_drawn`, the rows that entered a masked
+margin loss (n_steps × B per on-the-fly dispatch), and `rows_valid`, the
+rows of those that the sampler's row mask kept. The valid count is the
+0-d count that the loss computes for its denominator, kept by reference:
+no kernel and no host read until `counters()` is called."""
 
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 
-import numpy as np
 import torch
+
+_OFF = contextlib.nullcontext()
+_ROWS = {"drawn": 0, "valid": []}
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | Path):
     """Capture host and (where a card is present) device activity into
-    log_dir/trace.json, a Chrome trace; yields the profiler."""
+    log_dir/trace.json, a Chrome trace with the program's spans; yields
+    the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     log_dir = Path(log_dir)
@@ -29,78 +51,29 @@ def trace(log_dir: str | Path):
     prof.export_chrome_trace(str(log_dir / "trace.json"))
 
 
-def _leaves(out) -> list:
-    if isinstance(out, dict):
-        return [x for v in out.values() for x in _leaves(v)]
-    if isinstance(out, (tuple, list)):
-        return [x for v in out for x in _leaves(v)]
-    return [out]
+def span(name: str, **attrs):
+    """A profiler range named `name`, followed by ` key=value` for each
+    attribute, while a profiler records; else the shared null context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if attrs:
+        name = " ".join([name] + [f"{k}={v}" for k, v in attrs.items()])
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
-def _fence(out) -> float:
-    """Wait for `out` (a tensor, a number, or a tuple/list/dict of them)
-    and read one value of its first leaf on the host."""
-    leaves = _leaves(out)
-    for x in leaves:
-        if isinstance(x, torch.Tensor) and x.is_cuda:
-            torch.cuda.synchronize(x.device)
-    first = leaves[0]
-    if isinstance(first, torch.Tensor):
-        return float(first.detach().reshape(-1)[0])
-    return float(first)
+def count_rows(n_rows: int, n_valid: torch.Tensor) -> None:
+    """Add a loss's rows (a host int) and its 0-d count of valid rows (a
+    reference is kept) to the counter, while a profiler records."""
+    if torch.autograd._profiler_enabled():
+        _ROWS["drawn"] += n_rows
+        _ROWS["valid"].append(n_valid)
 
 
-def fenced_theil_sen(run, windows=(300, 1200, 2400), reps: int = 2,
-                     max_widen: int = 3, rel_spread_max: float = 0.35,
-                     warmup: int = 60) -> tuple[float, dict]:
-    """Per-step seconds of `run(n_steps) -> tensor`, measured as the
-    Theil–Sen (median of pairwise) slope of fenced wall time against window
-    size: the intercept absorbs per-call constants and the median rejects
-    isolated spikes.
-
-    Guard: if the median slope is not positive, or the pairwise slopes'
-    IQR exceeds rel_spread_max of the median, the window set is doubled
-    and the measurement redone, up to max_widen times; a probe that never
-    stabilizes raises instead of reporting garbage. Returns (slope_seconds,
-    info) where info records every attempt."""
-    _fence(run(warmup))
-    attempts = []
-    warmed: set = set()
-    for attempt in range(max_widen + 1):
-        for n in windows:
-            if n not in warmed:
-                _fence(run(n))
-                warmed.add(n)
-        pts = []
-        for _ in range(reps):
-            for n in windows:
-                t0 = time.perf_counter()
-                _fence(run(n))
-                pts.append((n, time.perf_counter() - t0))
-        slopes = np.array([(tj - ti) / (nj - ni)
-                           for i, (ni, ti) in enumerate(pts)
-                           for nj, tj in pts[i + 1:] if nj != ni])
-        med = float(np.median(slopes))
-        q1, q3 = np.percentile(slopes, [25, 75])
-        spread = float((q3 - q1) / med) if med > 0 else float("inf")
-        attempts.append({"windows": list(windows), "slope_s": med,
-                         "iqr_over_median": spread})
-        if med > 0 and spread <= rel_spread_max:
-            return med, {"attempts": attempts, "widened": attempt}
-        windows = tuple(2 * w for w in windows)
-    raise RuntimeError(
-        f"fenced_theil_sen: no stable positive slope after {max_widen + 1} "
-        f"window sets: {attempts}")
-
-
-def timeit(fn, *args, n: int = 10, warmup: int = 2, **kw) -> dict[str, float]:
-    """Fenced wall timing of fn(*args, **kw): mean/min seconds."""
-    for _ in range(warmup):
-        _fence(fn(*args, **kw))
-    times = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        _fence(fn(*args, **kw))
-        times.append(time.perf_counter() - t0)
-    return {"mean_s": sum(times) / len(times), "min_s": min(times),
-            "n": float(n)}
+def counters() -> dict:
+    """{"rows_drawn", "rows_valid"} since the last call, then reset. Reads
+    the valid counts from the device: call it after the traced work's
+    closing fence."""
+    drawn, valid = _ROWS["drawn"], _ROWS["valid"]
+    _ROWS["drawn"], _ROWS["valid"] = 0, []
+    n_valid = int(torch.stack(valid).double().sum()) if valid else 0
+    return {"rows_drawn": drawn, "rows_valid": n_valid}
