@@ -29,8 +29,10 @@ oracle_parity; a lane's lines print when it ends:
              version and against the dense SR kernel fed the same gradient,
              timed beside the dense route it replaces; take_rows' backward
              (scatter_rows) at [35200,128] bf16 from a bench 3i batch's
-             2,560 ids and thirteen more inputs, bit for bit against its
-             plain version, timed on four of them beside index_add_
+             2,560 ids and seventeen more inputs, the crossover's both
+             routes among them, bit for bit against its plain version,
+             each with the route it took, timed on eight of them beside
+             index_add_
   kernel_bench
              fused_intersection against its plain version at [3,1024,128],
              [2,1024,128] (eval's batches), [3,4096,128] (the JAX bench's),
@@ -203,7 +205,11 @@ oracle_parity; a lane's lines print when it ends:
              round loss below the untrained parameters', an eval a round, ms
              per step and peak memory; fused_adam_leaf_sr and scatter_rows
              at the [100320, 128] bf16 table bit for bit against their
-             plain versions, timed beside bound and library call
+             plain versions, timed beside bound and library call; and
+             scatter_rows' bucket route at the benchmark cells' shapes
+             (check_bucket_scatter: a bio-d128 onthefly step's 262,144
+             float32 ids, 2,000,000 ids with 5% on row 0 in float32 and
+             bfloat16), bit for bit, timed, its split runs counted
   quality_guards
              (a lane) the three quality guards of bench.py's headline
              (experiments/bf16_quality.py, storage_quality.py,
@@ -662,13 +668,16 @@ def check_scatter_kernel(dev, work: dict, gen):
     all ids in one cluster's rows, ids on the first and last row of every
     tile, no ids, 9,000 ids (three of the kernel's 3,072-id passes), an odd
     width (d = 36, one column per thread), a misaligned cotangent, the
-    protocol's 1,760-row table (16-row tiles) and a 5,000-row table whose
-    132 tiles are not a whole number of 8-CTA clusters.
+    protocol's 1,760-row table (16-row tiles), a 5,000-row table whose
+    132 tiles are not a whole number of 8-CTA clusters, and uniform ids at
+    the crossover (12,288, the last length on the cluster route) and one
+    past it (the bucket route), in bfloat16 and float32.
     Tolerance: bit-exact against the plain version on the card (the same
-    position-order sum, each sum rounded to the dtype). The bench 3i batch
-    (bf16 and float32), the 2p batch and the 1,760-row table are timed,
-    each with its bound, beside zeros + index_add_ (the PyTorch route for
-    the same function: Adam needs a fresh gradient every step) and
+    position-order sum, each sum rounded to the dtype). Each row names the
+    route its call took (grads.LAUNCHES). The bench 3i batch (bf16 and
+    float32), the 2p batch, the 1,760-row table and the crossover cases are
+    timed, each with its bound, beside zeros + index_add_ (the PyTorch route
+    for the same function: Adam needs a fresh gradient every step) and
     index_add_ alone (the library yardstick)."""
     import torch
 
@@ -713,13 +722,22 @@ def check_scatter_kernel(dev, work: dict, gen):
                                         torch.tensor([4999], device=dev)]),
                        d, torch.bfloat16, 0),
     }
-    timed = ("bench_3i_batch", "bench_3i_batch_f32", "bench_2p_batch", "table_1760")
+    cross = geo["crossover"]
+    for dtype, tag in ((torch.bfloat16, ""), (torch.float32, "_f32")):
+        for count in (cross, cross + 1):
+            cases[f"crossover_{count}{tag}"] = (n, draw(n, count), d, dtype, 0)
+    timed = ("bench_3i_batch", "bench_3i_batch_f32", "bench_2p_batch", "table_1760",
+             *(k for k in cases if k.startswith("crossover")))
     rows = []
     for name, (n, ids, width, dtype, shift) in cases.items():
         count = ids.numel()
         buf = (torch.randn(count * width + shift, generator=gen) * 0.01).to(dev, dtype)
         ct = buf[shift:].view(count, width)
+        grads.reset_launch_counts()
         got = grads.scatter_rows(n, ids, ct)
+        route = [k.split(".")[1] for k in grads.ROUTE_KEYS if grads.LAUNCHES[k]]
+        check(route == ["cluster" if count <= cross else "bucket"],
+              f"scatter_rows on {name} ({count} ids) took the {route} route")
         want = grads.scatter_rows_plain(n, ids, ct)
         torch.cuda.synchronize()
         bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
@@ -727,7 +745,7 @@ def check_scatter_kernel(dev, work: dict, gen):
         err = float((got.float() - want.float()).abs().max())
         check(exact, f"scatter_rows differs from plain on {name}")
         row = {"ids": name, "shape": [n, width], "length": count, "dtype": str(dtype),
-               "distinct_rows": int(torch.unique(ids).numel()),
+               "route": route[0], "distinct_rows": int(torch.unique(ids).numel()),
                "max_run": int(torch.bincount(ids).max()) if count else 0,
                "bit_exact": exact, "max_abs_err": err}
         if name in timed:
@@ -4927,10 +4945,91 @@ def phase_paperscale(dev, card: str) -> dict:
         "library_ms": device_ms(lambda: zero.index_add_(0, ids, ct)),
         "zeros_index_add_ms": device_ms(zeros_index_add),
         "bound_ms": b_ms, "bound_by": b_by}
+    del zero, ct
+    out["scatter_rows_bucket"] = check_bucket_scatter(dev, dg, schema)
     out["seconds"] = time.perf_counter() - t_phase
     emit({"phase": "paperscale", **out, "failed": failed})
     check(not failed, "paperscale: " + "; ".join(failed))
     return out
+
+
+def check_bucket_scatter(dev, dg, schema) -> dict:
+    """scatter_rows' bucket route at the benchmark cells' shapes on the
+    [100320, 128] table: the ids and cotangent of one bio-d128 onthefly
+    step (float32, B = 65,536, "ip": four ids a query, 262,144 ids, captured
+    from make_onthefly_train_step on the paper-scale graph), and 2,000,000
+    ids drawn from them with 5% set to row 0 (the bio-sage2 level-2 shape:
+    the SAGE encoder clamps every padded neighbour to row 0), in float32 and
+    bfloat16. Each bit for bit against the plain version, on the bucket
+    route (grads.LAUNCHES), timed beside its bound and zeros + index_add_,
+    and the runs that more than one CTA summed (profiling.counters())."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from graphqembed_tpu_torch.experiments import paperscale as ps
+    from graphqembed_tpu_torch.experiments.kernel_bench import scatter_cost
+    from graphqembed_tpu_torch.models.params import init_params
+    from graphqembed_tpu_torch.ops import grads
+    from graphqembed_tpu_torch.training import profiling
+    from graphqembed_tpu_torch.training.device_data import default_optimizer
+    from graphqembed_tpu_torch.training.device_sampler import make_onthefly_train_step
+
+    cfg = ps.experiment_config(0.01, 1, False, batch_size=65536)
+    params = init_params(cfg, schema, torch.Generator().manual_seed(2), device=dev)
+    opt = default_optimizer(cfg)
+    run = make_onthefly_train_step(cfg, opt, dg)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    seen = capture_scatter_inputs(
+        lambda: run(params, opt.init(params), "ip", gen, 1, 1.0, False))
+    check(len(seen) == 1, f"a bio-d128 onthefly step made {len(seen)} scatter_rows calls")
+    n, step_ids, step_ct = seen[0]
+    check(step_ids.numel() == 4 * cfg.batch_size and step_ct.dtype == torch.float32,
+          f"the step's ids {step_ids.numel()}, {step_ct.dtype}")
+    del params, run, seen
+    g = torch.Generator().manual_seed(4)
+    length = 2_000_000
+    wide = step_ids[torch.randint(0, step_ids.numel(), (length,), generator=g).to(dev)]
+    wide[(torch.rand(length, generator=g) < 0.05).to(dev)] = 0
+    noise = (torch.randn(length, 128, generator=g) * 0.01).to(dev)
+    cases = {"bio_d128_onthefly_ip": (step_ids, step_ct),
+             "row0_5pct_2M": (wide, noise),
+             "row0_5pct_2M_bf16": (wide, noise.bfloat16())}
+    rows = {}
+    for name, (ids, ct) in cases.items():
+        length, width = ct.shape
+        bits = torch.int16 if ct.dtype == torch.bfloat16 else torch.int32
+        grads.reset_launch_counts()
+        profiling.counters()  # drop the counts of earlier profiled calls
+        with profile(activities=[ProfilerActivity.CPU]):
+            got = grads.scatter_rows(n, ids, ct)
+        split = profiling.counters()["scatter_runs_split"]
+        check(grads.LAUNCHES["scatter_rows.bucket"] == 1,
+              f"scatter_rows on {name} took the cluster route")
+        t0 = time.perf_counter()
+        want = grads.scatter_rows_plain(n, ids, ct)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(torch.equal(got.view(bits), want.view(bits)),
+              f"scatter_rows differs from plain on {name}")
+        del want
+        n_bytes, n_ops = scatter_cost(n, length, width, ct.element_size())
+        b_ms, b_by = bound(n_bytes, n_ops)
+
+        def zeros_index_add():
+            torch.zeros((n, width), dtype=ct.dtype, device=dev).index_add_(0, ids, ct)
+
+        kernel = lambda: grads.scatter_rows(n, ids, ct)  # noqa: E731
+        rows[name] = {"shape": [n, width], "length": length, "dtype": str(ct.dtype),
+                      "route": "bucket", "bit_exact": True,
+                      "max_run": int(torch.bincount(ids).max()),
+                      "rows_on_row_0": int((ids == 0).sum()), "runs_split": split,
+                      "ms": device_ms(kernel), "call_ms": time_ms(kernel, reps=10, inner=2),
+                      "zeros_index_add_ms": device_ms(zeros_index_add),
+                      "plain_call_s": plain_s, "bound_ms": b_ms, "bound_by": b_by,
+                      "bytes": n_bytes}
+        check(split > 0, f"no run of {name} was split")
+    profiling.counters()
+    return rows
 
 
 def phase_with_workload(fn_name: str, dev, card: str, data) -> dict:

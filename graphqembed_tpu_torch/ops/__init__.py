@@ -13,5 +13,9 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Launches of every kernel wrapper since the last reset_launch_counts()."""
-    return {k: v for m in _counted() for k, v in m.LAUNCHES.items()}
+    """Launches of every kernel wrapper since the last reset_launch_counts()
+    (scatter_rows' counts per route, each launch counted in scatter_rows
+    too, stay in grads.LAUNCHES)."""
+    from graphqembed_tpu_torch.ops.grads import ROUTE_KEYS
+    return {k: v for m in _counted() for k, v in m.LAUNCHES.items()
+            if k not in ROUTE_KEYS}

@@ -17,11 +17,15 @@ unlike a `record_function` range it leaves no copy on the device's
 timeline, so the device intervals of a trace are the kernels, copies and
 sets alone.
 
-Counter (`counters()`): `rows_drawn`, the rows that entered a masked
+Counters (`counters()`): `rows_drawn`, the rows that entered a masked
 margin loss (n_steps × B per on-the-fly dispatch), and `rows_valid`, the
 rows of those that the sampler's row mask kept. The valid count is the
 0-d count that the loss computes for its denominator, kept by reference:
-no kernel and no host read until `counters()` is called."""
+no kernel and no host read until `counters()` is called.
+`scatter_runs_split`: the runs of take_rows' backward that more than one
+CTA summed, each over its own column slice (`ops/grads.py`'s bucket route
+counts them on the device in a word of its scratch, kept by reference
+likewise)."""
 
 from __future__ import annotations
 
@@ -70,10 +74,18 @@ def count_rows(n_rows: int, n_valid: torch.Tensor) -> None:
 
 
 def counters() -> dict:
-    """{"rows_drawn", "rows_valid"} since the last call, then reset. Reads
-    the valid counts from the device: call it after the traced work's
-    closing fence."""
+    """{"rows_drawn", "rows_valid", "scatter_runs_split"} since the last
+    call, then reset. Reads the device's counts: call it after the traced
+    work's closing fence."""
+    from graphqembed_tpu_torch.ops import grads
+
     drawn, valid = _ROWS["drawn"], _ROWS["valid"]
+    split = grads.SPLIT_RUNS[:]
     _ROWS["drawn"], _ROWS["valid"] = 0, []
-    n_valid = int(torch.stack(valid).double().sum()) if valid else 0
-    return {"rows_drawn": drawn, "rows_valid": n_valid}
+    grads.SPLIT_RUNS.clear()
+
+    def total(counts):
+        return int(torch.stack(counts).double().sum()) if counts else 0
+
+    return {"rows_drawn": drawn, "rows_valid": total(valid),
+            "scatter_runs_split": total(split)}

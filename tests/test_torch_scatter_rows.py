@@ -12,7 +12,11 @@ chip_smoke.py.
 - The plain version equals an in-order numpy reference that adds each
   row's entries one by one in stable-sort order.
 - The kernel's launch geometry (`scatter_launch`) as csrc/grads.cu takes
-  it."""
+  it, with the route a call's length picks: the cluster route up to the
+  crossover, the bucket route above it.
+- The bucket route's plain twins: its partition equals a stable argsort by
+  tile, and its column-split, position-order sums equal the plain version
+  bit for bit."""
 
 import jax
 import jax.numpy as jnp
@@ -127,12 +131,144 @@ def test_scatter_launch_geometry(n, d, dtype, aligned, vec, rows, blocks):
     """Tiles of up to 128 rows (64 for float32), fewer (n/132, at least
     16) for a small table; 16-byte columns where they fit; CTAs in clusters of 8, the grid
     padded with empty tiles to a whole cluster and no further
-    (csrc/grads.cu refuses any other grid)."""
-    geo = grads.scatter_launch(n, d, dtype, aligned)
-    assert geo == {"vec": vec, "threads_per_block": 256, "rows_per_block": rows,
-                   "cluster": 8, "blocks": blocks, "ids_per_pass": 3072}
-    assert d % geo["vec"] == 0 and 1 <= rows <= (128 if dtype == torch.bfloat16 else 64)
+    (csrc/grads.cu refuses any other grid). Up to the crossover (12,288
+    ids, four of the cluster route's passes) every call takes the cluster
+    route; one id more takes the bucket route with the same tiles."""
+    want = {"vec": vec, "threads_per_block": 256, "rows_per_block": rows,
+            "cluster": 8, "blocks": blocks, "ids_per_pass": 3072,
+            "route": "cluster", "crossover": 12288}
+    for length in (0, 2560, 3072, 12288):
+        assert grads.scatter_launch(n, d, dtype, aligned, length) == want
+    assert grads.scatter_launch(n, d, dtype, aligned) == want
+    assert d % vec == 0 and 1 <= rows <= (128 if dtype == torch.bfloat16 else 64)
     assert blocks % 8 == 0 and (blocks - 8) * rows < n <= blocks * rows
+    geo = grads.scatter_launch(n, d, dtype, aligned, 12289)
+    assert geo["route"] == "bucket" and geo.items() >= want.items() - {("route", "cluster")}
+    assert geo["tiles"] == -(-n // rows) and geo["chunks"] == 4
+
+
+@pytest.mark.parametrize("n,d,dtype,length,route,tiles,slices,item_bytes", [
+    (100320, 128, torch.float32, 196608, "bucket", 1568, 16, 95325),   # bio-d128, 1p
+    (100320, 128, torch.float32, 262144, "bucket", 1568, 16, 127100),  # bio-d128, 2i
+    (100320, 128, torch.float32, 327680, "bucket", 1568, 16, 158875),  # bio-d128, 3i
+    (100320, 128, torch.float32, 1536, "cluster", None, None, None),   # bio-sage2 level 0
+    (100320, 128, torch.float32, 2560, "cluster", None, None, None),
+    (100320, 128, torch.float32, 49152, "bucket", 1568, 16, 32768),    # level 1
+    (100320, 128, torch.float32, 81920, "bucket", 1568, 16, 39718),
+    (100320, 128, torch.float32, 2621440, "bucket", 1568, 16, 1271001),  # level 2
+    (35200, 128, torch.bfloat16, 2560, "cluster", None, None, None),   # bench 3i batch
+    (35200, 128, torch.bfloat16, 1536, "cluster", None, None, None),   # bench 2p batch
+    (1760, 128, torch.float32, 512, "cluster", None, None, None),      # the oracle
+    (3520, 128, torch.float32, 2560, "cluster", None, None, None),     # the guards' tables
+    (10560, 128, torch.bfloat16, 2560, "cluster", None, None, None),
+    (1760, 128, torch.bfloat16, 81920, "bucket", 110, 8, 32768),       # deep, level 1
+    (35200, 128, torch.float32, 81920, "bucket", 550, 16, 39718),      # owner-compute shard
+    (35200, 128, torch.bfloat16, 2621440, "bucket", 275, 8, 635500),   # deep, level 2
+    (100320, 128, torch.float32, (1 << 25) - 1, "bucket", 1568, 16, 16268815),
+    (100320, 128, torch.float32, 1 << 25, "cluster", None, None, None),  # positions pack 25 bits
+    (600000, 128, torch.bfloat16, 65536, "cluster", None, None, None),   # 4,688 tiles: too many
+    (35200, 12800, torch.float32, 65536, "cluster", None, None, None),   # a row over 36 KB
+])
+def test_scatter_route_at_the_train_paths_shapes(n, d, dtype, length, route,
+                                                 tiles, slices, item_bytes):
+    """The route of each call the train paths make: the short id
+    lists (the bench batches, the oracle, the guards, the SAGE encoder's
+    level 0) keep the cluster route; the long ones (bio-d128's step, the
+    SAGE levels 1 and 2, the deep and owner-compute inputs) take the bucket
+    route, whose scratch holds the partition and the work items; lists of
+    2^25 ids or more, tables of more than 4,096 tiles and rows wider than a
+    stage buffer stay on the cluster route."""
+    geo = grads.scatter_launch(n, d, dtype, True, length)
+    assert geo["route"] == route
+    if route == "cluster":
+        assert "tiles" not in geo
+        return
+    chunks = -(-length // 4096)
+    assert (geo["tiles"], geo["chunks"], geo["slices"], geo["item_bytes"]) == \
+        (tiles, chunks, slices, item_bytes)
+    assert geo["slice_min"] * geo["vec"] * torch.empty((), dtype=dtype).element_size() == 32
+    assert geo["scratch_words"] == (length + chunks * tiles + 2 * tiles + 2) // 2 * 2 \
+        + 2 * (tiles * slices + tiles)
+
+
+def _hub_ids(rng, n, length, share, row=0):
+    """Ids drawn as a graph's neighbours are (a power law over a shuffled
+    table), `share` of them set to `row`."""
+    w = 1.0 / np.arange(1, n + 1) ** 0.8
+    ids = rng.permutation(n)[rng.choice(n, size=length, p=w / w.sum())]
+    ids[rng.random(length) < share] = row
+    return torch.from_numpy(ids.astype(np.int64))
+
+
+def _id_sets(rng, n, length):
+    return {
+        "uniform": torch.from_numpy(rng.integers(0, n, length)),
+        "hub_skewed": _hub_ids(rng, n, length, 0.0),
+        "row0_5pct": _hub_ids(rng, n, length, 0.05),
+        "one_row_60pct": _hub_ids(rng, n, length, 0.6, row=n // 2 + 3),
+        "all_one_row": torch.full((length,), n - 1, dtype=torch.int64),
+    }
+
+
+@pytest.mark.parametrize("kind", ["uniform", "hub_skewed", "row0_5pct",
+                                  "one_row_60pct", "all_one_row"])
+@pytest.mark.parametrize("length,chunk", [(12289, 4096), (9000, 1000), (777, 64)])
+def test_partition_twin_is_a_stable_argsort_by_tile(kind, length, chunk):
+    """The bucket route's partition (per-chunk counts by tile, their scan
+    tile by tile and chunk by chunk, each position at its group's first
+    slot plus its rank) lists every tile's positions in order: a stable
+    argsort of id // rows, and base the tiles' first slots."""
+    rng = np.random.default_rng(length)
+    n, rows = 1000, 16
+    ids = _id_sets(rng, n, length)[kind]
+    order, base = grads.partition_by_tile_plain(ids, rows, n, chunk)
+    assert torch.equal(order, torch.argsort(ids // rows, stable=True))
+    counts = torch.bincount(ids // rows, minlength=-(-n // rows))
+    assert torch.equal(base, torch.cat([torch.zeros(1, dtype=torch.int64),
+                                        torch.cumsum(counts, 0)]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["uniform", "hub_skewed", "row0_5pct",
+                                  "one_row_60pct", "all_one_row"])
+@pytest.mark.parametrize("length", [12288, 12289, 12290, 20000])
+def test_column_split_sums_equal_the_plain_version_bit_for_bit(dtype, kind,
+                                                               length):
+    """The bucket route's sums as its plain twin computes them (each work
+    item a tile and a column slice, its runs added in position order over
+    its columns alone, rows no id names as 0) equal scatter_rows_plain bit
+    for bit, in float32 and bfloat16, at lengths around the crossover. The
+    items are made small, so most tiles split into 32-byte slices."""
+    rng = np.random.default_rng(length + len(kind))
+    n, d = 300, 64
+    ids = _id_sets(rng, n, length)[kind]
+    ct = torch.from_numpy(rng.normal(size=(length, d)).astype(np.float32)).to(dtype)
+    geo = grads.scatter_launch(n, d, dtype, True, max(length, 12289))
+    geo["item_bytes"] = 2048
+    got, split = grads.scatter_rows_bucket_plain(n, ids, ct, geo)
+    want = grads.scatter_rows_plain(n, ids, ct)
+    np.testing.assert_array_equal(_bits(got.view(torch.int16).numpy() if dtype == torch.bfloat16
+                                        else got.numpy()),
+                                  _bits(want.view(torch.int16).numpy() if dtype == torch.bfloat16
+                                        else want.numpy()))
+    tiles = -(-n // geo["rows_per_block"])
+    items = grads.bucket_items_plain(torch.bincount(ids // geo["rows_per_block"], minlength=tiles),
+                                     geo, d, d * ct.element_size())
+    assert {t for t, _, _ in items} == set(range(tiles))
+    assert split > 0 and any(p1 - p0 < d // geo["vec"] for _, p0, p1 in items)
+
+
+@pytest.mark.parametrize("total,want", [
+    (0, [(0, 32)]), (100, [(0, 32)]), (248, [(0, 32)]), (249, [(0, 16), (16, 32)]),
+    (600, [(0, 12), (12, 24), (24, 32)]), (10**6, [(p, p + 2) for p in range(0, 32, 2)]),
+])
+def test_bucket_items_split_a_tile_by_its_bytes(total, want):
+    """A tile's cotangent bytes over item_bytes slices its columns (float32,
+    d = 128: 32 pieces of 16 bytes, slices of whole 32-byte pairs, at most
+    16); a tile of one slice is a light item."""
+    geo = grads.scatter_launch(100320, 128, torch.float32, True, 262144)
+    items = grads.bucket_items_plain(torch.tensor([total]), geo, 128, 512)
+    assert items == [(0, p0, p1) for p0, p1 in want]
 
 
 @pytest.mark.parametrize("d,dtype,ok", [

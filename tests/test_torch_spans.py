@@ -81,7 +81,8 @@ def test_off_a_span_is_one_null_context_and_nothing_is_counted(graph):
     assert profiling.span("gqe.a") is profiling.span("gqe.b", steps=3)
     _, run, _ = _dispatch(graph)
     run()
-    assert profiling.counters() == {"rows_drawn": 0, "rows_valid": 0}
+    assert profiling.counters() == {"rows_drawn": 0, "rows_valid": 0,
+                                    "scatter_runs_split": 0}
 
 
 def test_a_dispatch_records_the_seven_spans_nested(graph):
@@ -116,9 +117,12 @@ def test_counters_count_drawn_and_valid_rows_with_no_extra_op(graph,
     gen = torch.Generator().set_state(state)
     mask = tds.sample_dispatch(cfg, graph[1], tds.torch_draw(gen), "pi", 3,
                                True)["mask"]
-    assert rows == {"rows_drawn": 3 * 32, "rows_valid": int(mask.sum())}
+    # on the CPU take_rows' backward is the plain version: no split runs
+    assert rows == {"rows_drawn": 3 * 32, "rows_valid": int(mask.sum()),
+                    "scatter_runs_split": 0}
     assert 0 < rows["rows_valid"] < rows["rows_drawn"]
-    assert profiling.counters() == {"rows_drawn": 0, "rows_valid": 0}
+    assert profiling.counters() == {"rows_drawn": 0, "rows_valid": 0,
+                                    "scatter_runs_split": 0}
     # the same dispatch with the counter taken out runs the same operations
     _, run, _ = _dispatch(graph, "pi", n_steps=3)
     monkeypatch.setattr(profiling, "count_rows", lambda n, valid: None)
